@@ -1,8 +1,8 @@
 """Example: compress and decompress a cloud with the CTC1 codec
 (the reference's python/examples compress/decompress round trip)."""
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu import codec
+import cwipc_util_jax as cwipc
+from cwipc_util_jax import codec
 
 
 def main() -> None:

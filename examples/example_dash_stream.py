@@ -3,7 +3,7 @@
 Uses the SIGNALS SMD packager/player bindings (net/sink_lldpkg.py,
 net/source_lldplay.py).  Without the commercial SIGNALS libraries this
 demonstrates against the repo's fake loopback implementation — build it
-with `make -C cwipc_util_tpu/native fakesignals` (done automatically here)
+with `make -C cwipc_util_jax/native fakesignals` (done automatically here)
 and the same code runs unchanged against the real `.so`s by pointing
 SIGNALS_SMD_PATH at them.
 """
@@ -17,7 +17,7 @@ import time
 REPO = os.path.join(os.path.dirname(__file__), "..")
 sys.path.insert(0, REPO)
 
-NATIVE = os.path.join(REPO, "cwipc_util_tpu", "native")
+NATIVE = os.path.join(REPO, "cwipc_util_jax", "native")
 
 
 def main() -> int:
@@ -30,10 +30,10 @@ def main() -> int:
         os.environ["SIGNALS_SMD_PATH"] = os.path.join(NATIVE, "build")
         print("using the fake SIGNALS loopback libraries")
 
-    import cwipc_util_tpu as cwipc
-    from cwipc_util_tpu.codec import cwipc_new_encoder
-    from cwipc_util_tpu.net.sink_lldpkg import cwipc_sink_lldpkg
-    from cwipc_util_tpu.net.source_lldplay import cwipc_source_lldplay
+    import cwipc_util_jax as cwipc
+    from cwipc_util_jax.codec import cwipc_new_encoder
+    from cwipc_util_jax.net.sink_lldpkg import cwipc_sink_lldpkg
+    from cwipc_util_jax.net.source_lldplay import cwipc_source_lldplay
 
     with tempfile.TemporaryDirectory() as tmp:
         url = os.path.join(tmp, "stream", "live.mpd")
@@ -56,7 +56,7 @@ def main() -> int:
         print("published 3 encoded frames")
 
         # play back: DASH player -> decoder
-        from cwipc_util_tpu.codec import cwipc_new_decoder
+        from cwipc_util_jax.codec import cwipc_new_decoder
 
         src = cwipc_source_lldplay(os.path.dirname(url))
         assert src.start()

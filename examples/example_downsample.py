@@ -1,7 +1,7 @@
-"""Example: generate a synthetic cloud and voxel-downsample it on the TPU
+"""Example: generate a synthetic cloud and voxel-downsample it on device
 (the reference's python/examples downsample round trip)."""
 
-import cwipc_util_tpu as cwipc
+import cwipc_util_jax as cwipc
 
 
 def main() -> None:

@@ -19,8 +19,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax.numpy as jnp
 import numpy as np
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.ops.chain import (
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.ops.chain import (
     downsample_outliers_tilefilter,
     downsample_outliers_tilefilter_exact,
 )

@@ -3,7 +3,7 @@
 import sys
 import tempfile
 
-import cwipc_util_tpu as cwipc
+import cwipc_util_jax as cwipc
 
 
 def main() -> None:

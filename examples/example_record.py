@@ -5,7 +5,7 @@ generic registry so the same code works for real cameras."""
 import sys
 import tempfile
 
-import cwipc_util_tpu as cwipc
+import cwipc_util_jax as cwipc
 
 
 def main() -> None:

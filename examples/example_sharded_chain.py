@@ -24,9 +24,9 @@ import jax
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.parallel.mesh import cpu_devices, make_mesh
-from cwipc_util_tpu.parallel.pointaxis import sharded_chain
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.parallel.mesh import cpu_devices, make_mesh
+from cwipc_util_jax.parallel.pointaxis import sharded_chain
 
 
 def main() -> int:

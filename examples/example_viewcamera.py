@@ -6,8 +6,8 @@ selects real hardware when its plugin is registered."""
 import sys
 import threading
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.io.visualizer import Visualizer
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.io.visualizer import Visualizer
 
 
 def view(source, headless: bool, max_frames: int) -> None:

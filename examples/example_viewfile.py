@@ -5,9 +5,9 @@ import sys
 import tempfile
 import threading
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.io.visualizer import Visualizer
-from cwipc_util_tpu.models.playback import cwipc_playback
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.io.visualizer import Visualizer
+from cwipc_util_jax.models.playback import cwipc_playback
 
 
 def view(source, headless: bool, max_frames: int) -> None:

@@ -5,8 +5,8 @@ environments (counts frames without opening a window)."""
 import sys
 import threading
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.io.visualizer import Visualizer
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.io.visualizer import Visualizer
 
 
 def view(source, headless: bool, max_frames: int) -> None:

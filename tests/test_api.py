@@ -2,13 +2,16 @@
 python/test_cwipc_util.py (struct/array round trips, serialization round
 trips, leak accounting, synthetic source behavior, op invariants)."""
 
+import gc
 import os
 import struct
 
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
+import cwipc_util_jax as cwipc
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _build_pointcloud():
@@ -38,15 +41,16 @@ class TestModulePathParity:
 
         for mod in ("kinect", "orbbec", "realsense2"):
             with pytest.raises(ImportError):
-                importlib.import_module(f"cwipc_util_tpu.{mod}")
+                importlib.import_module(f"cwipc_util_jax.{mod}")
 
     def test_lazy_host_ownership_protocol(self):
         """Host-backed clouds (file/decode/from_points path) follow the
         same ownership protocol as device-backed ones: the leak oracle
         counts them, clone/detach transfer correctly, ops materialize
         the device buffer on demand, and freed access raises."""
-        import cwipc_util_tpu as cwipc
+        import cwipc_util_jax as cwipc
 
+        gc.collect()  # free earlier tests' cyclic garbage first
         base = cwipc.cwipc_dangling_allocations(False)
         pc = cwipc.cwipc_from_points(
             [(0.0, 0.0, 0.0, 1, 2, 3, 1), (1.0, 0.0, 0.0, 4, 5, 6, 1)], 5
@@ -72,7 +76,7 @@ class TestModulePathParity:
         assert cwipc.cwipc_dangling_allocations(False) == base
 
     def test_multicoarse_alias(self):
-        from cwipc_util_tpu.registration import multicoarse
+        from cwipc_util_jax.registration import multicoarse
 
         assert multicoarse.MultiCameraCoarseAruco is not None
         assert multicoarse.MultiCameraCoarse is not None
@@ -148,6 +152,7 @@ class TestPointcloudObject:
         assert abs(pc.cellsize() - 1.0) < 1e-6
 
     def test_dangling_allocations(self):
+        gc.collect()
         old = cwipc.cwipc_dangling_allocations(True)
         pc = _build_pointcloud()
         assert cwipc.cwipc_dangling_allocations(True) == old + 1
@@ -155,6 +160,7 @@ class TestPointcloudObject:
         assert cwipc.cwipc_dangling_allocations(True) == old
 
     def test_clone(self):
+        gc.collect()
         old = cwipc.cwipc_dangling_allocations(False)
         pc = _build_pointcloud()
         new_pc = pc.clone()
@@ -402,7 +408,7 @@ class TestCompileCache:
 
     SCRIPT = r"""
 import json, os
-import cwipc_util_tpu  # importing the package enables the cache
+import cwipc_util_jax  # importing the package enables the cache
 import jax, jax.numpy as jnp
 events = []
 from jax._src import monitoring
@@ -418,22 +424,19 @@ print(json.dumps({
 }))
 """
 
-    def _run(self, cache_dir, extra_env=None):
+    def _run(self, cache_dir=None, extra_env=None):
         import json
         import subprocess
         import sys
 
         env = dict(os.environ)
-        env["PYTHONPATH"] = str(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        )
+        env["PYTHONPATH"] = REPO_ROOT
         env["JAX_PLATFORMS"] = "cpu"
         env.pop("XLA_FLAGS", None)
-        # an explicit jax cache dir outranks CWIPC_JAX_CACHE_DIR by
-        # design — strip any inherited one so this test controls the
-        # subprocess's cache
+        # an explicit jax cache dir wins by design — this test controls it
         env.pop("JAX_COMPILATION_CACHE_DIR", None)
-        env["CWIPC_JAX_CACHE_DIR"] = str(cache_dir)
+        if cache_dir is not None:
+            env["JAX_COMPILATION_CACHE_DIR"] = str(cache_dir)
         # CPU-only processes default the cache OFF (XLA:CPU AOT-loader
         # log noise; see core/compile_cache.py) — force it on here so the
         # cross-process hit mechanics stay pinned on the CPU backend.
@@ -457,12 +460,20 @@ print(json.dumps({
         assert second["nfiles"] == first["nfiles"], (first, second)
 
     def test_opt_out(self, tmp_path):
-        out = self._run(tmp_path / "jc2", {"CWIPC_JAX_CACHE": "0"})
+        out = self._run(extra_env={"CWIPC_JAX_CACHE": "0"})
         assert not out["dir"]
         assert out["hits"] == 0 and out["misses"] == 0
 
     def test_cpu_only_default_off(self, tmp_path):
         """A plain JAX_PLATFORMS=cpu process leaves the cache unconfigured
         by default (no AOT-loader log noise in the suite/CLI subprocesses)."""
-        out = self._run(tmp_path / "jc3", {"CWIPC_JAX_CACHE": ""})
+        out = self._run(extra_env={"CWIPC_JAX_CACHE": ""})
         assert not out["dir"]
+
+    def test_default_dir_is_in_checkout(self):
+        """Without JAX_COMPILATION_CACHE_DIR the cache lands at the fixed
+        path <checkout>/.jax_cache, so every process of a checkout shares
+        it."""
+        out = self._run()
+        assert out["dir"] == os.path.join(REPO_ROOT, ".jax_cache")
+        assert out["nfiles"] >= 1, out

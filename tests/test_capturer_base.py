@@ -6,9 +6,9 @@ import json
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.core.buffers import POINT_DTYPE
-from cwipc_util_tpu.models.capturer_base import (
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.core.buffers import POINT_DTYPE
+from cwipc_util_jax.models.capturer_base import (
     CwipcBaseCamera,
     CwipcBaseCameraConfig,
     CwipcBaseCapture,

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu import filters
+import cwipc_util_jax as cwipc
+from cwipc_util_jax import filters
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +44,7 @@ class TestFactory:
     def test_custom_py(self, tmp_path):
         fn = tmp_path / "custom.py"
         fn.write_text(
-            "from cwipc_util_tpu.filters.abstract import BaseFilter\n"
+            "from cwipc_util_jax.filters.abstract import BaseFilter\n"
             "class CustomFilter(BaseFilter):\n"
             "    filtername = 'custom'\n"
             "    def _process(self, pc):\n"
@@ -112,7 +112,7 @@ class TestReviewRegressions:
     def test_colorize_contributions_covers_tile_255(self):
         """Tile 255 (all 8 cameras contributed) must be colorized too —
         the colormap is built over the full 0..255 range."""
-        from cwipc_util_tpu import cwipc_from_points, cwipc_point
+        from cwipc_util_jax import cwipc_from_points, cwipc_point
 
         pc = cwipc_from_points([cwipc_point(0, 0, 0, 10, 20, 30, 255)], 0)
         out = filters.factory("colorize(1.0,'contributions')").filter(pc)

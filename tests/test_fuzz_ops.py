@@ -4,7 +4,7 @@ numpy oracles (seeded, deterministic)."""
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
+import cwipc_util_jax as cwipc
 
 
 def random_cloud(rng, n, scale=1.0):
@@ -108,9 +108,9 @@ class TestCodecFuzz:
         """Bit flips, truncations and garbage-with-magic must raise
         CwipcError (or decode to something) — never crash with an
         unrelated exception.  Covers the octree/JPEG stream paths."""
-        import cwipc_util_tpu as cwipc
-        from cwipc_util_tpu import codec
-        from cwipc_util_tpu.core.errors import CwipcError
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax import codec
+        from cwipc_util_jax.core.errors import CwipcError
 
         gen = cwipc.cwipc_synthetic(0, 4000)
         gen.start()
@@ -153,9 +153,9 @@ class TestChainFuzz:
         the channel-major plumbing)."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.core.buffers import buffer_from_arrays
-        from cwipc_util_tpu.ops import compaction, outliers, voxelize
-        from cwipc_util_tpu.ops.chain import downsample_outliers_tilefilter
+        from cwipc_util_jax.core.buffers import buffer_from_arrays
+        from cwipc_util_jax.ops import compaction, outliers, voxelize
+        from cwipc_util_jax.ops.chain import downsample_outliers_tilefilter
 
         rng = np.random.default_rng(seed)
         n = int(rng.integers(300, 4000))
@@ -193,9 +193,9 @@ class TestChainFuzz:
         distribution, so approximation errors flip decisions)."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.core.buffers import buffer_from_arrays
-        from cwipc_util_tpu.ops import compaction, outliers, voxelize
-        from cwipc_util_tpu.ops.chain import downsample_outliers_tilefilter_exact
+        from cwipc_util_jax.core.buffers import buffer_from_arrays
+        from cwipc_util_jax.ops import compaction, outliers, voxelize
+        from cwipc_util_jax.ops.chain import downsample_outliers_tilefilter_exact
 
         rng = np.random.default_rng(seed + 7)
         n = int(rng.integers(300, 4000))
@@ -231,11 +231,11 @@ class TestChainFuzz:
         brute-force mean distances for every point."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.ops.cols_knn import (
+        from cwipc_util_jax.ops.cols_knn import (
             bruteforce_md_subset,
             cols_knn_mean_distance,
         )
-        from cwipc_util_tpu.ops.outliers import _mean_knn_dist_bruteforce
+        from cwipc_util_jax.ops.outliers import _mean_knn_dist_bruteforce
 
         rng = np.random.default_rng(seed + 77)
         n = int(rng.integers(500, 5000))
@@ -271,11 +271,11 @@ class TestChainFuzz:
         override keeps the core covered and the result exact."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.ops.cols_knn import (
+        from cwipc_util_jax.ops.cols_knn import (
             bruteforce_md_subset,
             cols_knn_mean_distance,
         )
-        from cwipc_util_tpu.ops.outliers import _mean_knn_dist_bruteforce
+        from cwipc_util_jax.ops.outliers import _mean_knn_dist_bruteforce
 
         rng = np.random.default_rng(9)
         n = 3000
@@ -324,14 +324,14 @@ class TestChainFuzz:
         the drops must poison their NEIGHBORS' coverage too — a dropped
         point is missing from nearby candidate sets, so 'covered' results
         near a drop would be silently wrong without ring invalidation
-        (the round-3 bug found on the public TPU path)."""
+        (the round-3 bug found on the public accelerator path)."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.ops.cols_knn import (
+        from cwipc_util_jax.ops.cols_knn import (
             bruteforce_md_subset,
             cols_knn_mean_distance,
         )
-        from cwipc_util_tpu.ops.outliers import _mean_knn_dist_bruteforce
+        from cwipc_util_jax.ops.outliers import _mean_knn_dist_bruteforce
 
         rng = np.random.default_rng(5)
         n = 2500
@@ -367,11 +367,11 @@ class TestChainFuzz:
         voxel_unique=False must keep every slot a candidate."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.ops.cols_knn import (
+        from cwipc_util_jax.ops.cols_knn import (
             bruteforce_md_subset,
             cols_knn_mean_distance,
         )
-        from cwipc_util_tpu.ops.outliers import _mean_knn_dist_bruteforce
+        from cwipc_util_jax.ops.outliers import _mean_knn_dist_bruteforce
 
         rng = np.random.default_rng(seed + 170)
         n = 3000

@@ -10,8 +10,8 @@ headless; the tests skip if EGL cannot initialize.
 import numpy as np
 import pytest
 
-from cwipc_util_tpu.io.gl_render import gl_available, render_points_gl
-from cwipc_util_tpu.io.render import OrbitCamera, render_points
+from cwipc_util_jax.io.gl_render import gl_available, render_points_gl
+from cwipc_util_jax.io.render import OrbitCamera, render_points
 
 pytestmark = pytest.mark.skipif(not gl_available(), reason="no EGL/GL")
 
@@ -67,9 +67,9 @@ class TestGLRenderer:
     def test_runtime_gl_failure_degrades_to_splat(self, monkeypatch):
         """A GL failure mid-run must not kill the viewer loop: the sink
         falls back to the numpy splat permanently."""
-        import cwipc_util_tpu as cwipc
-        from cwipc_util_tpu.io import gl_render
-        from cwipc_util_tpu.io.visualizer_sink import cwipc_window_sink
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax.io import gl_render
+        from cwipc_util_jax.io.visualizer_sink import cwipc_window_sink
 
         def boom(*a, **kw):
             raise RuntimeError("synthetic GL loss")
@@ -85,8 +85,8 @@ class TestGLRenderer:
     def test_visualizer_sink_uses_gl(self):
         """The cv2-less visualizer sink renders through the GL path and
         exposes the frame via get_image()."""
-        import cwipc_util_tpu as cwipc
-        from cwipc_util_tpu.io.visualizer_sink import cwipc_window_sink
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax.io.visualizer_sink import cwipc_window_sink
 
         win = cwipc_window_sink("t")  # headless: no cv2 GUI in this env
         pc = cwipc.cwipc_from_points(

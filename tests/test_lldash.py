@@ -2,7 +2,7 @@
 
 The real SIGNALS SMD packager/player are external commercial components;
 these tests build tiny loopback .so files exporting the same entry points
-(cwipc_util_tpu/native/fake_signals.c) and drive the full binding layer:
+(cwipc_util_jax/native/fake_signals.c) and drive the full binding layer:
 stream registration, push, discovery, frame pumping, quality switching and
 the error paths (reference behavior: python/cwipc/net/sink_lldpkg.py,
 python/cwipc/net/source_lldplay.py)."""
@@ -13,17 +13,17 @@ import time
 
 import pytest
 
-from cwipc_util_tpu.core.errors import CwipcError
+from cwipc_util_jax.core.errors import CwipcError
 
-NATIVE_DIR = pathlib.Path(__file__).parent.parent / "cwipc_util_tpu" / "native"
+NATIVE_DIR = pathlib.Path(__file__).parent.parent / "cwipc_util_jax" / "native"
 
 
 @pytest.fixture()
 def fake_signals(monkeypatch):
     """Build the fake SIGNALS libs, point SIGNALS_SMD_PATH at them, and
     reset the module-level DLL caches around each test."""
-    import cwipc_util_tpu.net.sink_lldpkg as sink_mod
-    import cwipc_util_tpu.net.source_lldplay as src_mod
+    import cwipc_util_jax.net.sink_lldpkg as sink_mod
+    import cwipc_util_jax.net.source_lldplay as src_mod
 
     build = NATIVE_DIR / "build"
     # always invoke make: it is incremental, and a stale .so (older than
@@ -44,7 +44,7 @@ def fake_signals(monkeypatch):
 
 def test_lldpkg_requires_signals(monkeypatch, tmp_path):
     """Without SIGNALS installed the factory raises a clear CwipcError."""
-    import cwipc_util_tpu.net.sink_lldpkg as sink_mod
+    import cwipc_util_jax.net.sink_lldpkg as sink_mod
 
     monkeypatch.setenv("SIGNALS_SMD_PATH", str(tmp_path / "nonexistent"))
     monkeypatch.setattr(sink_mod, "_lldpkg_dll_reference", None)
@@ -53,7 +53,7 @@ def test_lldpkg_requires_signals(monkeypatch, tmp_path):
 
 
 def test_lldplay_requires_signals(monkeypatch, tmp_path):
-    import cwipc_util_tpu.net.source_lldplay as src_mod
+    import cwipc_util_jax.net.source_lldplay as src_mod
 
     monkeypatch.setenv("SIGNALS_SMD_PATH", str(tmp_path / "nonexistent"))
     monkeypatch.setattr(src_mod, "_lldplay_dll_reference", None)
@@ -63,7 +63,7 @@ def test_lldplay_requires_signals(monkeypatch, tmp_path):
 
 def test_lldpkg_push(fake_signals, tmp_path):
     """Packager sink: add_stream/start/feed write frames per stream."""
-    from cwipc_util_tpu.net.sink_lldpkg import cwipc_sink_lldpkg
+    from cwipc_util_jax.net.sink_lldpkg import cwipc_sink_lldpkg
 
     url = str(tmp_path / "ingest") + "/live.mpd"
     sink = cwipc_sink_lldpkg(url)
@@ -94,7 +94,7 @@ def test_lldpkg_push(fake_signals, tmp_path):
 
 def test_lldplay_bad_url(fake_signals, tmp_path):
     """Playing a URL nothing was published at raises."""
-    from cwipc_util_tpu.net.source_lldplay import cwipc_multisource_lldplay
+    from cwipc_util_jax.net.source_lldplay import cwipc_multisource_lldplay
 
     src = cwipc_multisource_lldplay(str(tmp_path / "nothing-here"))
     with pytest.raises(CwipcError, match="cannot play"):
@@ -104,8 +104,8 @@ def test_lldplay_bad_url(fake_signals, tmp_path):
 def test_lldash_loopback_with_quality_switch(fake_signals, tmp_path):
     """Full loop: packager pushes tiled streams, player discovers them,
     pumps frames into per-tile views, and quality selection reaches the DLL."""
-    from cwipc_util_tpu.net.sink_lldpkg import cwipc_sink_lldpkg
-    from cwipc_util_tpu.net.source_lldplay import cwipc_multisource_lldplay
+    from cwipc_util_jax.net.sink_lldpkg import cwipc_sink_lldpkg
+    from cwipc_util_jax.net.source_lldplay import cwipc_multisource_lldplay
 
     url = str(tmp_path / "cdn") + "/"
     sink = cwipc_sink_lldpkg(url)
@@ -162,8 +162,8 @@ def test_lldash_loopback_with_quality_switch(fake_signals, tmp_path):
 
 def test_lldplay_single_stream_view(fake_signals, tmp_path):
     """The non-tiled factory adapts tile 0 of the multisource."""
-    from cwipc_util_tpu.net.sink_lldpkg import cwipc_sink_lldpkg
-    from cwipc_util_tpu.net.source_lldplay import cwipc_source_lldplay
+    from cwipc_util_jax.net.sink_lldpkg import cwipc_sink_lldpkg
+    from cwipc_util_jax.net.source_lldplay import cwipc_source_lldplay
 
     url = str(tmp_path / "single") + "/"
     sink = cwipc_sink_lldpkg(url)
@@ -200,7 +200,7 @@ def test_cli_dash_loopback(fake_signals, tmp_path):
     env.pop("XLA_FLAGS", None)
     env["SIGNALS_SMD_PATH"] = str(fake_signals)
     rv = subprocess.run(
-        [sys.executable, "-m", "cwipc_util_tpu", "forward", "--synthetic",
+        [sys.executable, "-m", "cwipc_util_jax", "forward", "--synthetic",
          "--npoints", "1000", "--count", "5", "--fps", "10",
          "--seg_dur", "2000", "--timeshift_buffer", "5000",
          "--lldpkg", url + "/live.mpd"],
@@ -209,7 +209,7 @@ def test_cli_dash_loopback(fake_signals, tmp_path):
     assert rv.returncode == 0, rv.stderr[-500:]
     assert (tmp_path / "cdn" / "streams.txt").exists()
     rv = subprocess.run(
-        [sys.executable, "-m", "cwipc_util_tpu", "view", "--lldplay", url,
+        [sys.executable, "-m", "cwipc_util_jax", "view", "--lldplay", url,
          "--nodisplay", "--count", "5"],
         capture_output=True, text=True, timeout=240, env=env,
     )
@@ -230,7 +230,7 @@ def test_cli_tiled_dash_loopback(fake_signals, tmp_path):
     env.pop("XLA_FLAGS", None)
     env["SIGNALS_SMD_PATH"] = str(fake_signals)
     rv = subprocess.run(
-        [sys.executable, "-m", "cwipc_util_tpu", "forward", "--synthetic",
+        [sys.executable, "-m", "cwipc_util_jax", "forward", "--synthetic",
          "--npoints", "1000", "--count", "5", "--fps", "10", "--tiled",
          "--lldpkg", url + "/live.mpd"],
         capture_output=True, text=True, timeout=240, env=env,
@@ -238,7 +238,7 @@ def test_cli_tiled_dash_loopback(fake_signals, tmp_path):
     assert rv.returncode == 0, rv.stderr[-500:]
     assert (tmp_path / "cdn" / "streams.txt").read_text().splitlines()[0].strip() == "2"
     rv = subprocess.run(
-        [sys.executable, "-m", "cwipc_util_tpu", "view",
+        [sys.executable, "-m", "cwipc_util_jax", "view",
          "--mt-lldplay", url, "--nodisplay", "--count", "2", "-v"],
         capture_output=True, text=True, timeout=240, env=env,
     )
@@ -252,8 +252,8 @@ def test_lldplay_negative_normal_roundtrip(fake_signals, tmp_path):
     (reference sink_lldpkg.py:205-207); the player decodes SIGNED.  (The
     reference's unsigned decode at source_lldplay.py:322 turns z=-1.0 into
     4294966.296 — a bug deliberately not preserved.)"""
-    from cwipc_util_tpu.net.sink_lldpkg import cwipc_sink_lldpkg
-    from cwipc_util_tpu.net.source_lldplay import cwipc_multisource_lldplay
+    from cwipc_util_jax.net.sink_lldpkg import cwipc_sink_lldpkg
+    from cwipc_util_jax.net.source_lldplay import cwipc_multisource_lldplay
 
     url = str(tmp_path / "cdn-neg") + "/"
     sink = cwipc_sink_lldpkg(url)
@@ -275,7 +275,7 @@ def test_lldpkg_empty_frame_rejected(fake_signals, tmp_path):
     """A zero-length frame is inexpressible in the two-phase grab protocol
     (size 0 = "nothing pending") and would stall its stream forever in the
     player; the packager rejects it at the source."""
-    from cwipc_util_tpu.net.sink_lldpkg import cwipc_sink_lldpkg
+    from cwipc_util_jax.net.sink_lldpkg import cwipc_sink_lldpkg
 
     url = str(tmp_path / "cdn-empty") + "/"
     sink = cwipc_sink_lldpkg(url)
@@ -292,8 +292,8 @@ def test_lldplay_pump_error_surfaces_as_eof(fake_signals, tmp_path):
     """A failure in the pump thread must surface as EOF + error_condition so
     consumers wake up, instead of silently killing the daemon thread and
     leaving available(wait=True)/get() blocked forever."""
-    from cwipc_util_tpu.net.sink_lldpkg import cwipc_sink_lldpkg
-    from cwipc_util_tpu.net.source_lldplay import cwipc_multisource_lldplay
+    from cwipc_util_jax.net.sink_lldpkg import cwipc_sink_lldpkg
+    from cwipc_util_jax.net.source_lldplay import cwipc_multisource_lldplay
 
     url = str(tmp_path / "cdn-err") + "/"
     sink = cwipc_sink_lldpkg(url)

@@ -1,4 +1,4 @@
-"""Native C ABI tests: build libcwipc_util_tpu.so, bind it with ctypes, and
+"""Native C ABI tests: build libcwipc_util_jax.so, bind it with ctypes, and
 verify cross-language parity — files and packets written by the native lib
 must read back identically through the Python/JAX layer and vice versa
 (the reference's C-ABI interop contract, include/cwipc_util/api.h)."""
@@ -11,14 +11,14 @@ import subprocess
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
+import cwipc_util_jax as cwipc
 
-NATIVE_DIR = pathlib.Path(__file__).parent.parent / "cwipc_util_tpu" / "native"
+NATIVE_DIR = pathlib.Path(__file__).parent.parent / "cwipc_util_jax" / "native"
 
 
 @pytest.fixture(scope="module")
 def native_lib():
-    so = NATIVE_DIR / "build" / "libcwipc_util_tpu.so"
+    so = NATIVE_DIR / "build" / "libcwipc_util_jax.so"
     if not so.exists():
         rv = subprocess.run(["make", "-C", str(NATIVE_DIR)], capture_output=True, text=True)
         if rv.returncode != 0:
@@ -183,7 +183,7 @@ class TestNativeInterop:
         native_lib.cwipc_pointcloud_free(nclean)
 
     def test_native_downsample_matches_python(self, native_lib):
-        """The native hash-grid downsample and the TPU kernel agree on the
+        """The native hash-grid downsample and the JAX downsample agree on the
         voxel set (order-independent)."""
         gen = cwipc.cwipc_synthetic(0, 2500)
         gen.start()
@@ -315,7 +315,7 @@ def test_timing_harness_runs():
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("XLA_FLAGS", None)
     r = subprocess.run(
-        [sys.executable, "-m", "cwipc_util_tpu.benchmarks.timing_tests", "2000"],
+        [sys.executable, "-m", "cwipc_util_jax.benchmarks.timing_tests", "2000"],
         capture_output=True, text=True, timeout=240, env=env,
     )
     assert r.returncode == 0, r.stderr[-500:]
@@ -529,7 +529,7 @@ def test_pcl2dump_app(tmp_path):
     assert r.returncode == 0, r.stderr[-300:]
     assert "160000 points" in r.stderr
     # the dump must read back identically through the Python layer
-    import cwipc_util_tpu as cwipc
+    import cwipc_util_jax as cwipc
 
     pc = cwipc.cwipc_read_debugdump(dump)
     assert pc.count() == 160000
@@ -546,7 +546,7 @@ def test_native_degenerate_args(native_lib):
     (no before-begin nth_element / division by zero), cellsize-0
     downsample is a no-op copy (no inf->int cast), and out-of-range
     metadata indexes return NULL instead of throwing across the C ABI."""
-    import cwipc_util_tpu as cwipc
+    import cwipc_util_jax as cwipc
 
     gen = cwipc.cwipc_synthetic(0, 2000)
     gen.start()
@@ -578,8 +578,8 @@ def test_codec_native_paths_bit_exact(native_lib, monkeypatch):
     (round 4; CWIPC_CODEC_NATIVE=0 forces the numpy twins)."""
     import numpy as np
 
-    import cwipc_util_tpu as cwipc
-    import cwipc_util_tpu.codec as C
+    import cwipc_util_jax as cwipc
+    import cwipc_util_jax.codec as C
 
     def reset():
         for attr in ("_NATIVE_GEO", "_NATIVE_OCT", "_NATIVE_DECG"):

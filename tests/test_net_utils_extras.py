@@ -32,8 +32,8 @@ def _point_bytes(pts):
 
 class TestProxySource:
     def test_receive_ack_and_latest_wins(self):
-        from cwipc_util_tpu.net.proxy import CWIPC_POINT_PACKETHEADER_MAGIC
-        from cwipc_util_tpu.net.proxy import cwipc_proxy_source
+        from cwipc_util_jax.net.proxy import CWIPC_POINT_PACKETHEADER_MAGIC
+        from cwipc_util_jax.net.proxy import cwipc_proxy_source
 
         port = _free_port()
         src = cwipc_proxy_source("127.0.0.1", port)
@@ -64,7 +64,7 @@ class TestProxySource:
             src.stop()
 
     def test_bad_magic_drops_connection(self):
-        from cwipc_util_tpu.net.proxy import cwipc_proxy_source
+        from cwipc_util_jax.net.proxy import cwipc_proxy_source
 
         port = _free_port()
         src = cwipc_proxy_source("127.0.0.1", port)
@@ -82,7 +82,7 @@ class TestProxySource:
 
 class TestPeekQueue:
     def test_dont_get_leaves_item(self):
-        from cwipc_util_tpu.net.peek_queue import PeekQueue
+        from cwipc_util_jax.net.peek_queue import PeekQueue
 
         q = PeekQueue(maxsize=2)
         q.put("a")
@@ -90,7 +90,7 @@ class TestPeekQueue:
         assert q.get() == "a"  # still there
 
     def test_dont_get_timeout(self):
-        from cwipc_util_tpu.net.peek_queue import PeekQueue
+        from cwipc_util_jax.net.peek_queue import PeekQueue
 
         q = PeekQueue()
         assert q.dont_get(timeout=0.05) is None
@@ -103,7 +103,7 @@ class TestPeekQueue:
         import threading
         import time
 
-        from cwipc_util_tpu.net.peek_queue import PeekQueue
+        from cwipc_util_jax.net.peek_queue import PeekQueue
 
         q = PeekQueue(maxsize=2)
         got = []
@@ -131,12 +131,12 @@ class TestPeekQueue:
 
 class TestVectorsQuirks:
     def test_len_vector_returns_squared_length(self):
-        from cwipc_util_tpu.utils.vectors import len_vector
+        from cwipc_util_jax.utils.vectors import len_vector
 
         assert len_vector((3.0, 4.0, 0.0)) == 25.0  # quirk: squared
 
     def test_norm_vector_divides_by_squared_length(self):
-        from cwipc_util_tpu.utils.vectors import len_vector, norm_vector
+        from cwipc_util_jax.utils.vectors import len_vector, norm_vector
 
         v = norm_vector((2.0, 0.0, 0.0))
         # result length is 1/|a|, not 1 (reference vectors.h:39-47)
@@ -144,7 +144,7 @@ class TestVectorsQuirks:
         assert len_vector(norm_vector((0.0, 0.0, 0.0))) == 0.0
 
     def test_dot_and_cross(self):
-        from cwipc_util_tpu.utils.vectors import cross_vectors, dot_vectors
+        from cwipc_util_jax.utils.vectors import cross_vectors, dot_vectors
 
         assert dot_vectors((1, 2, 3), (4, 5, 6)) == 32
         assert cross_vectors((1, 0, 0), (0, 1, 0)) == (0, 0, 1)
@@ -152,7 +152,7 @@ class TestVectorsQuirks:
 
 class TestLogging:
     def test_callback_receives_messages(self):
-        from cwipc_util_tpu.utils import logging as cl
+        from cwipc_util_jax.utils import logging as cl
 
         got = []
         cl.cwipc_log_configure(3, lambda lvl, msg: got.append((lvl, msg)))
@@ -164,7 +164,7 @@ class TestLogging:
             cl.cwipc_log_configure(0, None)
 
     def test_level_filters(self):
-        from cwipc_util_tpu.utils import logging as cl
+        from cwipc_util_jax.utils import logging as cl
 
         got = []
         cl.cwipc_log_configure(1, lambda lvl, msg: got.append(lvl))
@@ -177,7 +177,7 @@ class TestLogging:
             cl.cwipc_log_configure(0, None)
 
     def test_capture_errors(self):
-        from cwipc_util_tpu.utils import logging as cl
+        from cwipc_util_jax.utils import logging as cl
 
         with cl.capture_errors() as cap:
             cl._cwipc_log_emit(1, "mod", "boom")
@@ -186,7 +186,7 @@ class TestLogging:
 
 class TestStats:
     def test_print1stat_formats(self, capsys):
-        from cwipc_util_tpu.utils.stats import print1stat
+        from cwipc_util_jax.utils.stats import print1stat
 
         print1stat("comp", "latency", [1.0, 2.0, 3.0])
         out = capsys.readouterr().out
@@ -195,7 +195,7 @@ class TestStats:
         assert "count=0" in capsys.readouterr().out
 
     def test_timer_and_stats(self, capsys):
-        from cwipc_util_tpu.utils.stats import Stats, Timer
+        from cwipc_util_jax.utils.stats import Stats, Timer
 
         st = Stats("unit")
         with Timer(st, "sleep"):
@@ -216,7 +216,7 @@ class TestNodropLateSubscriber:
         import threading
         import time
 
-        from cwipc_util_tpu.net.sink_netserver import _Sink_NetServer, pack_frame
+        from cwipc_util_jax.net.sink_netserver import _Sink_NetServer, pack_frame
 
         sink = _Sink_NetServer(0, nodrop=True)  # port 0: auto-assign
         # three streams on consecutive auto ports is not possible with port
@@ -267,7 +267,7 @@ class TestSwitchportRaces:
         import threading
         import time
 
-        from cwipc_util_tpu.net.sink_netserver import pack_frame
+        from cwipc_util_jax.net.sink_netserver import pack_frame
 
         lsock = socket.socket()
         lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -316,8 +316,8 @@ class TestSwitchportRaces:
         import threading
         import time
 
-        from cwipc_util_tpu.net.abstract import VRT_4CC
-        from cwipc_util_tpu.net.source_netclient import cwipc_source_netclient
+        from cwipc_util_jax.net.abstract import VRT_4CC
+        from cwipc_util_jax.net.source_netclient import cwipc_source_netclient
 
         def free_port():
             s = socket.socket()

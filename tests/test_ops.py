@@ -2,10 +2,12 @@
 (test_cwipc_util.py:428-594) plus exact-semantics parity checks against
 straightforward numpy implementations."""
 
+import gc
+
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
+import cwipc_util_jax as cwipc
 
 
 @pytest.fixture(scope="module")
@@ -278,8 +280,8 @@ def test_downsample_merged_exact_matches_full_exact():
     """The merged (vy,vz) tiebreak key must reproduce the 4-key exact path
     bit-for-bit on a wide scene (extent > 1023 cells, < 2^15)."""
     import jax.numpy as jnp
-    from cwipc_util_tpu.core.buffers import PointBuffer
-    from cwipc_util_tpu.ops import voxelize
+    from cwipc_util_jax.core.buffers import PointBuffer
+    from cwipc_util_jax.ops import voxelize
 
     rng = np.random.default_rng(5)
     cap = 8192
@@ -303,8 +305,8 @@ def test_spacing_estimate_not_inflated_by_distant_prefix():
     inflating the outlier grid cells ~1000x in candidate count)."""
     import numpy as np
 
-    import cwipc_util_tpu as cwipc
-    from cwipc_util_tpu.ops import _estimate_spacing
+    import cwipc_util_jax as cwipc
+    from cwipc_util_jax.ops import _estimate_spacing
 
     rng = np.random.default_rng(7)
     n = 20000
@@ -344,8 +346,9 @@ def test_tilemap_dict_rejects_out_of_range_keys():
 
 
 def test_join_multi_frees_intermediates():
-    from cwipc_util_tpu import cwipc_dangling_allocations, cwipc_join_multi
+    from cwipc_util_jax import cwipc_dangling_allocations, cwipc_join_multi
 
+    gc.collect()  # free earlier tests' cyclic garbage first
     before = cwipc_dangling_allocations(False)
     pcs = [
         cwipc.cwipc_from_points([cwipc.cwipc_point(i, 0, 0, 1, 2, 3, 1)], 0)

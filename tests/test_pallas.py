@@ -1,4 +1,8 @@
-"""Pallas kernel parity tests (interpret mode on the CPU test platform)."""
+"""Device-path tests that need no GPU: the Pallas window kernel in
+interpret mode, the XLA forms of the other stages against plain numpy /
+scipy oracles, and every device program lowered for CUDA."""
+
+import re
 
 import numpy as np
 import pytest
@@ -6,390 +10,103 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cwipc_util_tpu.ops import outliers
-from cwipc_util_tpu.ops.pallas_window_knn import BLOCK, window_knn_mean_distance
+from cwipc_util_jax.core.buffers import PointBuffer, buffer_from_arrays
+from cwipc_util_jax.ops import compaction, outliers
+from cwipc_util_jax.ops.pallas_window_knn import BLOCK, window_knn_mean_distance_cm
+
+
+def _window_md(xyz, count, k, window):
+    return window_knn_mean_distance_cm(
+        xyz[:, 0], xyz[:, 1], xyz[:, 2], count, k, window=window, interpret=True
+    )
 
 
 class TestWindowKnnKernel:
     @pytest.mark.parametrize("count", [4000, 4096, 100, 0])
     def test_matches_xla_path(self, count):
         rng = np.random.default_rng(count)
-        cap = 2 * BLOCK
+        cap = 8 * BLOCK
         xyz = jnp.asarray(np.sort(rng.random((cap, 3), dtype=np.float32), axis=0))
         c = jnp.int32(count)
         ref = np.asarray(outliers._mean_knn_dist_window(xyz, c, 30, window=32))
-        got = np.asarray(window_knn_mean_distance(xyz, c, 30, window=32))
+        got = np.asarray(_window_md(xyz, c, 30, 32))
         assert np.allclose(ref, got, atol=1e-6), np.abs(ref - got).max()
 
+    @pytest.mark.parametrize(
+        "cap,count,k,window",
+        [
+            (1500, 1400, 30, 16),  # production: drop the 2 largest
+            (1024, 1000, 5, 16),  # keep the 5 smallest
+            (700, 650, 16, 8),  # k == 2W: nothing dropped
+            (600, 37, 40, 4),  # k > 2W: divisor is 2W
+            (2048, 2047, 20, 16),  # drop 12 of 32
+        ],
+    )
+    def test_selection_branches_match_xla(self, cap, count, k, window):
+        """Both register-list strategies (drop the largest / keep the
+        smallest), padding to the block size, and k beyond the window."""
+        rng = np.random.default_rng(cap + k)
+        xyz = jnp.asarray(np.sort(rng.random((cap, 3), dtype=np.float32), axis=0))
+        c = jnp.int32(count)
+        ref = np.asarray(outliers._mean_knn_dist_window(xyz, c, k, window=window))
+        got = np.asarray(_window_md(xyz, c, k, window))
+        assert got.shape == (cap,)
+        # float32 summation order differs (sum-then-subtract vs sorted sum)
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-7)
+        assert not got[count:].any()
+
     def test_remove_outliers_method(self):
+        """The window method's survivors equal a compaction driven by the
+        kernel's mean distances."""
         rng = np.random.default_rng(1)
-        cap = 2 * BLOCK
+        cap = 8 * BLOCK
         n = 4000
         pts = np.sort(rng.random((cap, 3), dtype=np.float32), axis=0)
-        from cwipc_util_tpu.core.buffers import buffer_from_arrays
-
         z = np.zeros(cap, np.uint8)
         buf = buffer_from_arrays(pts, z, z, z, z, capacity=cap)
         buf = type(buf)(xyz=buf.xyz, rgba=buf.rgba, count=jnp.int32(n))
         a = outliers.remove_outliers(buf, 30, jnp.float32(1.0), method="window")
-        b = outliers.remove_outliers(buf, 30, jnp.float32(1.0), method="window_pallas")
+        md = _window_md(buf.xyz, buf.count, 30, 32)
+        keep = outliers._keep_from_mean_dists(md, buf.valid_mask(), jnp.float32(1.0))
+        b = compaction.compact(buf, keep)
         assert int(a.count) == int(b.count)
         na, nb = np.asarray(a.xyz[: int(a.count)]), np.asarray(b.xyz[: int(b.count)])
         assert np.array_equal(na, nb)
 
 
-class TestColsSelectKernel:
-    """The fused exact-selection kernel must reproduce the XLA column-grid
-    selection (full candidate ring, no pre-selection) slot for slot."""
-
-    def _planes(self, n, gy, gz, cap, seed, spread=0.3):
-        from cwipc_util_tpu.ops.cols_knn import _cols_build
-
-        rng = np.random.default_rng(seed)
-        capn = 1 << int(np.ceil(np.log2(max(n, 2))))
-        xyz = np.zeros((capn, 3), np.float32)
-        xyz[:n] = rng.random((n, 3), dtype=np.float32) * spread
-        cell = jnp.float32(0.02)
-        built = _cols_build(
-            jnp.asarray(xyz), jnp.int32(n), cell, gy=gy, gz=gz, cap=cap,
-            chunk=64,
-        )
-        return built[:3], cell
-
-    @pytest.mark.parametrize("n,k", [(900, 8), (300, 5), (40, 30)])
-    def test_matches_xla_selection(self, n, k):
-        from cwipc_util_tpu.ops.cols_knn import _cols_select
-        from cwipc_util_tpu.ops.pallas_cols_select import cols_select_pallas
-
-        gy = gz = 24
-        cap = 12
-        (xs_g, ys_g, zs_g), _cell = self._planes(n, gy, gz, cap, seed=n + k)
-        gyz = gy * gz
-        chunk = 64
-        c0s = jnp.arange(gyz // chunk, dtype=jnp.int32) * chunk
-        sums_x, kth_x = _cols_select(
-            xs_g, ys_g, zs_g, c0s, k=k, gy=gy, gz=gz, cap=cap, chunk=chunk,
-            voxel_unique=False,
-        )
-        sums_x = np.asarray(sums_x).reshape(gyz, cap)
-        kth_x = np.asarray(kth_x).reshape(gyz, cap)
-        sums_p, kth_p = cols_select_pallas(
-            xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, interpret=True
-        )
-        sums_p, kth_p = np.asarray(sums_p), np.asarray(kth_p)
-
-        # Only OCCUPIED query slots carry defined results (empty-slot
-        # values are never read back — _cols_finish scatters via
-        # slot_orig); compare those.  The kernel scans the 9x9 ring MINUS
-        # its 4 corner columns (provably beyond the 4-cell coverage
-        # radius), so the contract is: identical covered/uncovered
-        # classification, and bit-equal k-th for COVERED slots (corner
-        # candidates can never be among a covered slot's k smallest).
-        off = 4 * gz + 4
-        occ = np.asarray(xs_g)[off : off + gyz, :] < 1e30
-        r_cut = float(_cell) * 4.0 * (1.0 - 1e-6)
-        np.testing.assert_array_equal(
-            (kth_p < r_cut)[occ], (kth_x < r_cut)[occ]
-        )
-        cov = occ & (kth_x < r_cut)
-        np.testing.assert_array_equal(kth_p[cov], kth_x[cov])
-        # sums differ only in fp accumulation order
-        np.testing.assert_allclose(
-            sums_p[cov], sums_x[cov], rtol=1e-5, atol=1e-5
-        )
-
-    def test_occupancy_tiers_match_xla(self):
-        """The per-tile static occupancy tiers (16/24/full) must all be
-        exercised and agree with the XLA selection.  The cloud mixes a
-        dense blob (columns near cap=28 -> top tier), a medium blob
-        (~17-24 -> middle tier) and sparse fill (<=16 -> low tier)."""
-        from cwipc_util_tpu.ops.cols_knn import _cols_build, _cols_select
-        from cwipc_util_tpu.ops.pallas_cols_select import (
-            SLOT_TIERS,
-            TILE,
-            cols_select_pallas,
-            slab_occupancy,
-        )
-
-        gy, gz = 64, 24
-        cap, k = 28, 9
-        cell = 0.02
-        rng = np.random.default_rng(11)
-        # columns are (y, z); occupancy = points per distinct (y, z) cell.
-        # Place points on distinct x-cells within chosen columns so the
-        # column occupancy is exact and no cap overflow occurs.
-        pts = []
-        def fill_columns(y0, z0, ny, nz, occ):
-            for iy in range(ny):
-                for iz in range(nz):
-                    for ix in range(occ):
-                        jitter = rng.random(3) * cell * 0.4
-                        pts.append([
-                            (ix * 2) * cell + jitter[0],
-                            (y0 + iy) * cell + jitter[1],
-                            (z0 + iz) * cell + jitter[2],
-                        ])
-        # One blob per dispatch tier.  A tile's occupancy slice covers
-        # plane rows [t*128 - off, t*128 + off + 128) = y within about
-        # [-4.2, +9.5] rows of its queries (off = 4*gz+4 = 100), so blobs
-        # 15 y-rows apart are seen by disjoint tile sets; tiles between
-        # blobs are near-empty and land in the smallest tier.
-        fill_columns(0, 2, 4, 4, 27)    # -> full-cap tier (32)
-        fill_columns(15, 2, 4, 4, 22)   # -> tier 24
-        fill_columns(30, 2, 3, 4, 18)   # -> tier 20
-        fill_columns(45, 2, 3, 4, 14)   # -> tier 16
-        fill_columns(60, 2, 2, 4, 6)    # -> tier 12
-        n = len(pts)
-        capn = 1 << int(np.ceil(np.log2(n)))
-        xyz = np.zeros((capn, 3), np.float32)
-        xyz[:n] = np.asarray(pts, np.float32)
-        built = _cols_build(
-            jnp.asarray(xyz), jnp.int32(n), jnp.float32(cell), gy=gy, gz=gz,
-            cap=cap, chunk=64,
-        )
-        xs_g, ys_g, zs_g = built[:3]
-        gyz = gy * gz
-
-        # confirm the scene really spans every dispatch tier, using the
-        # kernel's own dispatch quantity (slab_occupancy) and its own
-        # tier list (SLOT_TIERS + the full capp bucket)
-        capp = -(-cap // 8) * 8
-        tier_list = sorted({min(t, capp) for t in (*SLOT_TIERS, capp)})
-        ntiles = -(-gyz // TILE)
-        tiers = set()
-        for t in range(ntiles):
-            m = slab_occupancy(xs_g, gz=gz, cap=cap, tile=t)
-            tiers.add(next(tc for tc in tier_list if m <= tc))
-        assert tiers == set(tier_list), f"scene covers tiers {tiers}"
-
-        chunk = 64
-        c0s = jnp.arange(gyz // chunk, dtype=jnp.int32) * chunk
-        sums_x, kth_x = _cols_select(
-            xs_g, ys_g, zs_g, c0s, k=k, gy=gy, gz=gz, cap=cap, chunk=chunk,
-            voxel_unique=False,
-        )
-        sums_x = np.asarray(sums_x).reshape(gyz, cap)
-        kth_x = np.asarray(kth_x).reshape(gyz, cap)
-        sums_p, kth_p = cols_select_pallas(
-            xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, interpret=True
-        )
-        sums_p, kth_p = np.asarray(sums_p), np.asarray(kth_p)
-        off = 4 * gz + 4  # plane front-halo rows (cols_knn off_max)
-        occ = np.asarray(xs_g)[off : off + gyz, :] < 1e30
-        # corner-trimmed ring: compare classification + covered slots
-        # (see test_matches_xla_selection)
-        r_cut = cell * 4.0 * (1.0 - 1e-6)
-        np.testing.assert_array_equal(
-            (kth_p < r_cut)[occ], (kth_x < r_cut)[occ]
-        )
-        cov = occ & (kth_x < r_cut)
-        np.testing.assert_array_equal(kth_p[cov], kth_x[cov])
-        np.testing.assert_allclose(
-            sums_p[cov], sums_x[cov], rtol=1e-5, atol=1e-5
-        )
-
-    def test_seeded_bisection_matches_unseeded(self):
-        """The seeded bisection (d_k >= cell/2 volume bound, k >= 27 on a
-        voxel-unique cloud) must produce BIT-IDENTICAL results to the
-        unseeded path — identical coverage classification, kth and sums."""
-        from cwipc_util_tpu.ops.cols_knn import _cols_build
-        from cwipc_util_tpu.ops.pallas_cols_select import cols_select_pallas
-
-        gy, gz = 32, 24
-        cap, k = 28, 30
-        cell = 0.02
-        rng = np.random.default_rng(3)
-        # voxel-unique by construction: distinct cells per point
-        pts = []
-        for iy in range(3, 28):
-            for iz in range(3, 20):
-                for ix in range(int(rng.integers(1, 9))):
-                    jitter = rng.random(3) * cell * 0.9
-                    pts.append([ix * cell + jitter[0],
-                                iy * cell + jitter[1],
-                                iz * cell + jitter[2]])
-        n = len(pts)
-        capn = 1 << int(np.ceil(np.log2(n)))
-        xyz = np.zeros((capn, 3), np.float32)
-        xyz[:n] = np.asarray(pts, np.float32)
-        built = _cols_build(
-            jnp.asarray(xyz), jnp.int32(n), jnp.float32(cell), gy=gy, gz=gz,
-            cap=cap, chunk=64,
-        )
-        xs_g, ys_g, zs_g = built[:3]
-        a = cols_select_pallas(
-            xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, interpret=True
-        )
-        b = cols_select_pallas(
-            xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, interpret=True,
-            cell=jnp.float32(cell), seeded=True,
-        )
-        gyz = gy * gz
-        off = 4 * gz + 4
-        occ = np.asarray(xs_g)[off:off + gyz, :cap] < 1e30
-        r_cut = cell * 4.0 * (1.0 - 1e-6)
-        kth_a, kth_b = np.asarray(a[1]), np.asarray(b[1])
-        np.testing.assert_array_equal(
-            (kth_a < r_cut)[occ], (kth_b < r_cut)[occ]
-        )
-        cov = occ & (kth_a < r_cut)
-        assert cov.sum() > 50
-        np.testing.assert_array_equal(kth_b[cov], kth_a[cov])
-        np.testing.assert_array_equal(
-            np.asarray(b[0])[cov], np.asarray(a[0])[cov]
-        )
-
-    def test_mxu_count_env_gate(self, monkeypatch):
-        """The public wrapper resolves the MXU-count default OUTSIDE jit:
-        default ON (measured 80 -> 50 ms on-chip, CEILING.md claim 3),
-        CWIPC_SEL_MXU_COUNT=0 restores the VPU reduction.  Pin the
-        resolution so the escape hatch cannot silently rot."""
-        import cwipc_util_tpu.ops.pallas_cols_select as mod
-
-        seen = {}
-
-        def fake_jit(*a, mxu_count=None, **kw):
-            seen["mxu"] = mxu_count
-            return None
-
-        monkeypatch.setattr(mod, "_cols_select_jit", fake_jit)
-        monkeypatch.delenv("CWIPC_SEL_MXU_COUNT", raising=False)
-        mod.cols_select_pallas()
-        assert seen["mxu"] is True
-        monkeypatch.setenv("CWIPC_SEL_MXU_COUNT", "0")
-        mod.cols_select_pallas()
-        assert seen["mxu"] is False
-        mod.cols_select_pallas(mxu_count=False)
-        assert seen["mxu"] is False
-
-    def test_mxu_count_matches_vpu_count(self):
-        """The MXU-count variant (bisection counts as exact ones-row
-        matmuls — the round-5 falsification attempt at the ALU wall,
-        see benchmarks/ceiling.py) must be BIT-IDENTICAL to the VPU
-        reduction: counts are small integers in f32 either way, and the
-        selection consumes only counts."""
-        from cwipc_util_tpu.ops.cols_knn import _cols_build
-        from cwipc_util_tpu.ops.pallas_cols_select import cols_select_pallas
-
-        gy, gz = 32, 24
-        cap, k = 28, 30
-        cell = 0.02
-        rng = np.random.default_rng(4)
-        pts = []
-        for iy in range(3, 28):
-            for iz in range(3, 20):
-                for ix in range(int(rng.integers(1, 9))):
-                    jitter = rng.random(3) * cell * 0.9
-                    pts.append([ix * cell + jitter[0],
-                                iy * cell + jitter[1],
-                                iz * cell + jitter[2]])
-        n = len(pts)
-        capn = 1 << int(np.ceil(np.log2(n)))
-        xyz = np.zeros((capn, 3), np.float32)
-        xyz[:n] = np.asarray(pts, np.float32)
-        built = _cols_build(
-            jnp.asarray(xyz), jnp.int32(n), jnp.float32(cell), gy=gy, gz=gz,
-            cap=cap, chunk=64,
-        )
-        xs_g, ys_g, zs_g = built[:3]
-        a = cols_select_pallas(
-            xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, interpret=True,
-            cell=jnp.float32(cell), seeded=True,
-        )
-        b = cols_select_pallas(
-            xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, interpret=True,
-            cell=jnp.float32(cell), seeded=True, mxu_count=True,
-        )
-        gyz = gy * gz
-        off = 4 * gz + 4
-        occ = np.asarray(xs_g)[off:off + gyz, :cap] < 1e30
-        np.testing.assert_array_equal(
-            np.asarray(b[1])[occ], np.asarray(a[1])[occ]
-        )
-        np.testing.assert_array_equal(
-            np.asarray(b[0])[occ], np.asarray(a[0])[occ]
-        )
-
-    def test_tile_range_matches_full(self):
-        """Sharded-caller contract: running the kernel over tile ranges
-        and concatenating equals the full-plane run (incl. an
-        over-the-end range, which recomputes the last tile)."""
-        import jax.numpy as jnp
-
-        from cwipc_util_tpu.ops.pallas_cols_select import TILE, cols_select_pallas
-
-        gy = gz = 24  # gyz = 576 -> 5 tiles of 128
-        cap = 12
-        k = 7
-        (xs_g, ys_g, zs_g), _cell = self._planes(800, gy, gz, cap, seed=3)
-        gyz = gy * gz
-        ntiles = -(-gyz // TILE)
-        sums_f, kth_f = cols_select_pallas(
-            xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, interpret=True
-        )
-        # two devices' worth of ranges, pdt = 3 -> second range overruns
-        pdt = 3
-        parts = []
-        for me in range(2):
-            s, kt = cols_select_pallas(
-                xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap,
-                tile0=jnp.int32(me * pdt), ntiles_run=pdt, interpret=True,
-            )
-            parts.append((np.asarray(s), np.asarray(kt)))
-        sums_r = np.concatenate([p[0] for p in parts])[:gyz]
-        kth_r = np.concatenate([p[1] for p in parts])[:gyz]
-        np.testing.assert_array_equal(kth_r, np.asarray(kth_f))
-        np.testing.assert_array_equal(sums_r, np.asarray(sums_f))
-
-    def test_end_to_end_md_parity(self):
-        """cols_knn md via the kernel == via XLA on covered points."""
-        from cwipc_util_tpu.ops.cols_knn import (
-            _cols_build,
-            _cols_finish,
-            cols_knn_mean_distance,
-        )
-        from cwipc_util_tpu.ops.pallas_cols_select import cols_select_pallas
-
-        rng = np.random.default_rng(5)
-        n, gy, gz, cap, k = 700, 24, 24, 12, 6
-        capn = 1024
-        xyz = np.zeros((capn, 3), np.float32)
-        xyz[:n] = rng.random((n, 3), dtype=np.float32) * 0.3
-        cell = jnp.float32(0.02)
-        md_x, unc_x = cols_knn_mean_distance(
-            jnp.asarray(xyz), jnp.int32(n), cell, k, gy=gy, gz=gz, cap=cap
-        )
-        xs_g, ys_g, zs_g, _so, valid, drop_ring, point_slot = _cols_build(
-            jnp.asarray(xyz), jnp.int32(n), cell, gy=gy, gz=gz, cap=cap,
-            chunk=64,
-        )
-        sums, kth = cols_select_pallas(
-            xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, interpret=True
-        )
-        md_p, unc_p = _cols_finish(
-            sums, kth, point_slot, valid, drop_ring, cell, k=k, gy=gy, gz=gz,
-            cap=cap,
-        )
-        md_x, unc_x, md_p, unc_p = map(np.asarray, (md_x, unc_x, md_p, unc_p))
-        np.testing.assert_array_equal(unc_p, unc_x)
-        cov = ~unc_x & (np.arange(capn) < n)
-        assert cov.sum() > 100
-        np.testing.assert_allclose(md_p[cov], md_x[cov], rtol=1e-5, atol=1e-6)
+# ---------------------------------------------------------------------------
+# The XLA run reduction (the downsample's segment sum) vs numpy
+# ---------------------------------------------------------------------------
 
 
-class TestSegmentReduceKernel:
+def _reduce(smk, sfr, srgba, count, ocap=2048, cell=1.0):
+    from cwipc_util_jax.ops.voxelize import _reduce_runs_xla_cm
+
+    return _reduce_runs_xla_cm(
+        jnp.asarray(smk), jnp.asarray(sfr), jnp.asarray(srgba), jnp.int32(count),
+        jnp.zeros(3, jnp.int32), jnp.float32(cell), ocap=ocap,
+    )
+
+
+def _demorton(keys):
+    def compact(v):
+        out = np.zeros_like(v)
+        for b in range(10):
+            out |= ((v >> (3 * b)) & 1) << b
+        return out
+
+    keys = keys.astype(np.int64)
+    return compact(keys), compact(keys >> 1), compact(keys >> 2)
+
+
+class TestSegmentReduce:
     @pytest.mark.parametrize(
         "count,nruns",
         [(3500, 300), (4096, 500), (100, 7), (0, 1), (3000, 5), (2100, 1)],
-    )  # (3000,5)/(2100,1): runs far beyond the short-run scan window
+    )
     def test_matches_numpy_oracle(self, count, nruns):
-        from cwipc_util_tpu.ops.pallas_segment_reduce import (
-            B as SRB,
-            segment_reduce_sorted,
-        )
-
         rng = np.random.default_rng(count + nruns)
-        cap = 4 * SRB
+        cap = 4096
         if count:
             lens = rng.multinomial(count, np.ones(nruns) / nruns)
             keys = np.repeat(
@@ -401,152 +118,120 @@ class TestSegmentReduceKernel:
         smk[: len(keys)] = keys
         sfr = rng.integers(0, 1 << 30, size=cap).astype(np.int32)
         srgba = rng.integers(-(2**31), 2**31, size=cap).astype(np.int32)
-        out, nseg = segment_reduce_sorted(
-            jnp.asarray(smk), jnp.asarray(sfr), jnp.asarray(srgba),
-            jnp.int32(len(keys)), out_capacity=2048,
-        )
-        out = np.asarray(out)
+        x, y, z, rgba, nseg = map(np.asarray, _reduce(smk, sfr, srgba, len(keys)))
         uniq, inv = np.unique(keys, return_inverse=True)
         assert int(nseg) == len(uniq)
+        assert not x[len(uniq):].any() and not rgba[len(uniq):].any()
         if not len(keys):
             return
-        r = ((srgba[: len(keys)] >> 16) & 0xFF).astype(np.float64)
-        tile = ((srgba[: len(keys)].astype(np.int64) >> 24) & 0xFF).astype(np.int64)
+        u = srgba[: len(keys)].astype(np.int64) & 0xFFFFFFFF
+        fr = sfr[: len(keys)].astype(np.int64)
+        vx, vy, vz = _demorton(uniq)
         for s in range(len(uniq)):
             sel = inv == s
-            assert int(out[8, s]) + int(out[9, s]) * 32768 == uniq[s]
-            assert abs(out[3, s] - r[sel].sum()) < 1e-2
-            assert int(out[6, s]) == sel.sum()
-            assert int(out[7, s]) == np.bitwise_or.reduce(tile[sel])
+            fx = (((fr[sel] >> 20) & 1023) + 0.5).mean() / 1024
+            fz = (((fr[sel]) & 1023) + 0.5).mean() / 1024
+            # the offsets are summed exactly (int32); only the final
+            # float32 (v + frac) rounds: one ulp of the coordinate
+            assert abs(x[s] - (vx[s] + fx)) <= np.spacing(np.float32(vx[s] + 1))
+            assert abs(z[s] - (vz[s] + fz)) <= np.spacing(np.float32(vz[s] + 1))
+            r = int(((u[sel] >> 16) & 0xFF).mean())
+            assert int((int(rgba[s]) >> 16) & 0xFF) == r
+            assert (int(rgba[s]) >> 24) == np.bitwise_or.reduce(u[sel] >> 24)
 
-
-class TestBitonicSortKernel:
-    @pytest.mark.parametrize("n", [8192, 1 << 15])
-    def test_sorts_and_permutes(self, n):
-        from cwipc_util_tpu.ops.pallas_sort import sort3
-
-        rng = np.random.default_rng(n)
-        k = rng.integers(0, n // 8, n).astype(np.int32)  # heavy duplicates
-        k[rng.random(n) < 0.1] = np.iinfo(np.int32).max  # padding sentinels
-        a = rng.integers(-(2**31), 2**31, n).astype(np.int32)
-        b = rng.integers(-(2**31), 2**31, n).astype(np.int32)
-        ok, oa, ob = sort3(
-            jnp.asarray(k), jnp.asarray(a), jnp.asarray(b), interpret=True
-        )
-        ok, oa, ob = map(np.asarray, (ok, oa, ob))
-        assert (np.diff(ok) >= 0).all()
-        dt = [("k", "<i4"), ("a", "<i4"), ("b", "<i4")]
-        tin = np.sort(np.stack([k, a, b], 1).view(dt).ravel())
-        tout = np.sort(np.stack([ok, oa, ob], 1).view(dt).ravel())
-        assert (tin == tout).all()
-
-    def test_matches_lax_sort_on_voxel_runs(self):
-        from cwipc_util_tpu.ops.pallas_sort import sort3
-
-        n = 8192
-        rng = np.random.default_rng(7)
-        k = np.sort(rng.integers(0, 500, n)).astype(np.int32)
-        rng.shuffle(k)
-        a = np.arange(n, dtype=np.int32)
-        b = rng.integers(0, 1 << 30, n).astype(np.int32)
-        ok, oa, ob = sort3(
-            jnp.asarray(k), jnp.asarray(a), jnp.asarray(b), interpret=True
-        )
-        xk, xa, xb = jax.lax.sort(
-            (jnp.asarray(k), jnp.asarray(a), jnp.asarray(b)), num_keys=1
-        )
-        assert (np.asarray(ok) == np.asarray(xk)).all()
-        # per-key multisets of payload pairs match (sort3 is not stable)
-        ok_np, oa_np, ob_np = map(np.asarray, (ok, oa, ob))
-        xa_np, xb_np = np.asarray(xa), np.asarray(xb)
-        for key in np.unique(k):
-            sel = ok_np == key
-            got = set(zip(oa_np[sel].tolist(), ob_np[sel].tolist()))
-            want = set(zip(xa_np[sel].tolist(), xb_np[sel].tolist()))
-            assert got == want
-
-    def test_highest_precision_fallback(self, monkeypatch):
-        """_EMIT_BF16_SPLITS=0 selects Precision.HIGHEST emission matmuls;
-        results must be bit-identical to the bf16x3 split (both exact)."""
-        from cwipc_util_tpu.ops import pallas_segment_reduce as sr
-
-        rng = np.random.default_rng(3)
-        keys = np.repeat(np.sort(rng.choice(1 << 29, 40, replace=False)).astype(np.int32), 60)
-        cap = 4 * sr.B
-        smk = np.full(cap, np.iinfo(np.int32).max, np.int32)
-        smk[: len(keys)] = keys
-        sfr = rng.integers(0, 1 << 30, cap).astype(np.int32)
-        srgba = rng.integers(-(2**31), 2**31, cap).astype(np.int32)
-        args = (jnp.asarray(smk), jnp.asarray(sfr), jnp.asarray(srgba), jnp.int32(len(keys)))
-        out_a, n_a = sr.segment_reduce_sorted(*args, out_capacity=2048)
-        monkeypatch.setattr(sr, "_EMIT_BF16_SPLITS", 0)
-        sr.segment_reduce_sorted._clear_cache()
-        out_b, n_b = sr.segment_reduce_sorted(*args, out_capacity=2048)
-        sr.segment_reduce_sorted._clear_cache()
-        assert int(n_a) == int(n_b)
-        # compare the valid region only (columns past nseg are
-        # uninitialized staging garbage)
-        n = int(n_a)
-        assert np.array_equal(np.asarray(out_a)[:, :n], np.asarray(out_b)[:, :n])
-
-    def test_block_aligned_runs_emit_carry(self):
-        """Runs ending exactly at block boundaries exercise the carried-run
-        emission column (sums + tile OR + key halves rebuilt from carries)."""
-        from cwipc_util_tpu.ops.pallas_segment_reduce import B as SRB
-        from cwipc_util_tpu.ops.pallas_segment_reduce import segment_reduce_sorted
-
+    def test_block_aligned_runs(self):
+        """Runs of 1024 identical keys: counts, tile OR and colors."""
         rng = np.random.default_rng(11)
-        nblocks = 4
-        keys = np.repeat(np.array([5, 9, 1000, 70000], np.int32), SRB)
-        cap = nblocks * SRB
-        sfr = rng.integers(0, 1 << 30, cap).astype(np.int32)
-        srgba = rng.integers(-(2**31), 2**31, cap).astype(np.int32)
-        out, nseg = segment_reduce_sorted(
-            jnp.asarray(keys), jnp.asarray(sfr), jnp.asarray(srgba),
-            jnp.int32(cap), out_capacity=2048,
-        )
-        out = np.asarray(out)
+        run = 1024
+        keys = np.repeat(np.array([5, 9, 1000, 70000], np.int32), run)
+        sfr = rng.integers(0, 1 << 30, keys.size).astype(np.int32)
+        srgba = rng.integers(-(2**31), 2**31, keys.size).astype(np.int32)
+        x, y, z, rgba, nseg = map(np.asarray, _reduce(keys, sfr, srgba, keys.size))
         assert int(nseg) == 4
-        tile = ((srgba.astype(np.int64) >> 24) & 0xFF).astype(np.int64)
-        r = ((srgba >> 16) & 0xFF).astype(np.float64)
-        for s, key in enumerate([5, 9, 1000, 70000]):
-            sel = slice(s * SRB, (s + 1) * SRB)
-            assert int(out[8, s]) + int(out[9, s]) * 32768 == key
-            assert int(out[6, s]) == SRB
-            assert int(out[7, s]) == np.bitwise_or.reduce(tile[sel])
-            assert abs(out[3, s] - r[sel].sum()) < 0.5
+        u = srgba.astype(np.int64) & 0xFFFFFFFF
+        for s in range(4):
+            sel = slice(s * run, (s + 1) * run)
+            assert (int(rgba[s]) >> 24) == np.bitwise_or.reduce(u[sel] >> 24)
+            assert ((int(rgba[s]) >> 8) & 0xFF) == int(((u[sel] >> 8) & 0xFF).mean())
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_order_within_runs_does_not_change_bits(self, seed):
+        """The sums are integer, so permuting the points inside each run
+        (as a device's scatter-add order may) gives the same bits."""
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(1, 400, 20)
+        keys = np.repeat(np.sort(rng.choice(1 << 29, 20, replace=False)), lens)
+        keys = keys.astype(np.int32)
+        sfr = rng.integers(0, 1 << 30, keys.size).astype(np.int32)
+        srgba = rng.integers(-(2**31), 2**31, keys.size).astype(np.int32)
+        perm = np.concatenate([
+            s + rng.permutation(n) for s, n in zip(np.cumsum(lens) - lens, lens)
+        ])
+        a = _reduce(keys, sfr, srgba, keys.size, ocap=64, cell=0.004)
+        b = _reduce(keys, sfr[perm], srgba[perm], keys.size, ocap=64, cell=0.004)
+        for u, v in zip(a, b):
+            assert np.array_equal(np.asarray(u), np.asarray(v))
+
+
+class TestLongRunTileOr:
+    def test_tile_or_exact_for_runs_over_2048(self):
+        """A single voxel holding >= 2048 same-tile points keeps the exact
+        tile OR."""
+        cap = 1 << 12  # 4096 points, all in ONE voxel run
+        smk = np.zeros(cap, np.int32)
+        sfr = np.zeros(cap, np.int32)
+        tile = 1
+        srgba = np.full(cap, (tile << 24) | 0x00AABBCC, np.uint32).astype(np.int32)
+        x, y, z, rgba, nseg = _reduce(smk, sfr, srgba, cap, ocap=256)
+        assert int(nseg) == 1
+        assert int(np.asarray(rgba)[0]) >> 24 == tile
+        assert int(np.asarray(rgba)[0]) & 0xFFFFFF == 0xAABBCC
+
+    def test_tile_or_exact_mixed_bits_long_runs(self):
+        """Long runs mixing low and high tile bits keep both."""
+        cap = 1 << 12
+        smk = np.concatenate([np.zeros(cap // 2, np.int32), np.ones(cap // 2, np.int32)])
+        sfr = np.zeros(cap, np.int32)
+        tiles = np.concatenate([
+            np.full(cap // 4, 0x01, np.uint32),  # run 0: bits 0 and 4
+            np.full(cap // 4, 0x10, np.uint32),
+            np.full(cap // 2, 0x88, np.uint32),  # run 1: bits 3 and 7
+        ])
+        srgba = ((tiles << 24) | 0x00112233).astype(np.int32)
+        x, y, z, rgba, nseg = _reduce(smk, sfr, srgba, cap, ocap=256)
+        rgba = np.asarray(rgba)
+        assert int(nseg) == 2
+        assert int(rgba[0]) >> 24 == 0x11
+        assert int(rgba[1]) >> 24 == 0x88
+
+
+# ---------------------------------------------------------------------------
+# Compaction (sort form) vs numpy
+# ---------------------------------------------------------------------------
 
 
 class TestCompactKernel:
     @pytest.mark.parametrize("count,frac", [(5000, 0.8), (2048, 1.0), (300, 0.3), (4096, 0.0)])
     def test_matches_sort_compaction(self, count, frac):
-        """The MXU ring compactor must reproduce the sort-based compaction
-        bit-exactly (order-preserving subset, zeroed tail, same count)."""
-        from cwipc_util_tpu.ops.pallas_compact import compact_pallas
-
+        """compact_cm is an order-preserving subset with a zeroed tail."""
         cap = 1 << 13
         rng = np.random.default_rng(count)
         xyz = rng.standard_normal((cap, 3)).astype(np.float32)
         rgba = rng.integers(0, 1 << 32, cap, dtype=np.uint32)
         keep = rng.random(cap) < frac
-        keep[count:] = False
-
-        new_xyz, new_rgba, nkept = jax.jit(compact_pallas)(
-            jnp.asarray(xyz), jnp.asarray(rgba), jnp.asarray(keep),
-            jnp.int32(count),
+        out = jax.jit(compaction.compact_cm)(
+            *(jnp.asarray(xyz[:, i]) for i in range(3)), jnp.asarray(rgba),
+            jnp.asarray(keep), jnp.int32(count),
         )
-        exp_xyz = xyz[keep]
-        exp_rgba = rgba[keep]
-        n = int(nkept)
+        keep[count:] = False
+        n = int(out.count)
         assert n == keep.sum()
-        np.testing.assert_array_equal(np.asarray(new_xyz)[:n], exp_xyz)
-        np.testing.assert_array_equal(np.asarray(new_rgba)[:n], exp_rgba)
-        assert not np.asarray(new_xyz)[n:].any()
+        np.testing.assert_array_equal(np.asarray(out.xyz)[:n], xyz[keep])
+        np.testing.assert_array_equal(np.asarray(out.rgba)[:n], rgba[keep])
+        assert not np.asarray(out.xyz)[n:].any()
 
     def test_nonfinite_payload_roundtrip(self):
-        """Bitcast 16-bit-half transport must survive inf/nan/-0.0 payloads."""
-        from cwipc_util_tpu.ops.pallas_compact import compact_pallas
-
+        """Bitcast transport survives inf/nan/-0.0/subnormal payloads."""
         cap = 1 << 10
         xyz = np.zeros((cap, 3), np.float32)
         xyz[0] = [np.inf, -np.inf, np.nan]
@@ -554,280 +239,290 @@ class TestCompactKernel:
         rgba = np.arange(cap, dtype=np.uint32)
         keep = np.zeros(cap, bool)
         keep[:4] = True
-        new_xyz, new_rgba, nkept = jax.jit(compact_pallas)(
-            jnp.asarray(xyz), jnp.asarray(rgba), jnp.asarray(keep),
-            jnp.int32(cap),
-        )
-        got = np.asarray(new_xyz)
-        assert int(nkept) == 4
-        np.testing.assert_array_equal(
-            got[:2].view(np.uint32), xyz[:2].view(np.uint32)
-        )
-        np.testing.assert_array_equal(np.asarray(new_rgba)[:4], rgba[:4])
+        buf = PointBuffer(xyz=jnp.asarray(xyz), rgba=jnp.asarray(rgba), count=jnp.int32(cap))
+        out = jax.jit(compaction.compact)(buf, jnp.asarray(keep))
+        got = np.asarray(out.xyz)
+        assert int(out.count) == 4
+        np.testing.assert_array_equal(got[:2].view(np.uint32), xyz[:2].view(np.uint32))
+        np.testing.assert_array_equal(np.asarray(out.rgba)[:4], rgba[:4])
 
 
-class TestLongRunTileOr:
-    def test_tile_or_exact_for_runs_over_2048(self):
-        """A single voxel holding >= 2048 same-tile points must still decode
-        the exact tile OR (the packed base-2048 digit pairs saturate per
-        block; unsaturated accumulation would decode bit j as bit j+4)."""
-        from cwipc_util_tpu.ops.pallas_segment_reduce import segment_reduce_sorted
-
-        cap = 1 << 12  # 4096 points, all in ONE voxel run
-        smk = jnp.zeros(cap, jnp.int32)
-        sfr = jnp.zeros(cap, jnp.int32)
-        tile = 1  # bit 0: overflow would decode as tile 16 (bit 4)
-        srgba = jnp.full(cap, (tile << 24) | 0x00AABBCC, jnp.uint32).astype(jnp.int32)
-        out16, nseg = segment_reduce_sorted(
-            smk, sfr, srgba, jnp.int32(cap), out_capacity=256
-        )
-        assert int(nseg) == 1
-        assert int(out16[6, 0]) == cap  # count
-        assert int(out16[7, 0]) == tile, f"tile OR decoded as {int(out16[7, 0])}"
-
-    def test_tile_or_exact_mixed_bits_long_runs(self):
-        """Long runs mixing low and high tile bits keep both."""
-        from cwipc_util_tpu.ops.pallas_segment_reduce import segment_reduce_sorted
-
-        cap = 1 << 12
-        smk = jnp.concatenate([
-            jnp.zeros(cap // 2, jnp.int32),
-            jnp.ones(cap // 2, jnp.int32),
-        ])
-        sfr = jnp.zeros(cap, jnp.int32)
-        tiles = jnp.concatenate([
-            jnp.full(cap // 4, 0x01, jnp.uint32),   # run 0: bits 0 and 4
-            jnp.full(cap // 4, 0x10, jnp.uint32),
-            jnp.full(cap // 2, 0x88, jnp.uint32),   # run 1: bits 3 and 7
-        ])
-        srgba = ((tiles << 24) | 0x00112233).astype(jnp.int32)
-        out16, nseg = segment_reduce_sorted(
-            smk, sfr, srgba, jnp.int32(cap), out_capacity=256
-        )
-        assert int(nseg) == 2
-        assert int(out16[7, 0]) == 0x11
-        assert int(out16[7, 1]) == 0x88
+# ---------------------------------------------------------------------------
+# Column-grid exact kNN (plain XLA) vs scipy's float64 KD-tree
+# ---------------------------------------------------------------------------
 
 
-class TestNNKernel:
-    """Cross-cloud nearest-neighbor kernel (ops/pallas_nn.py) vs a numpy
-    brute-force oracle."""
+def _kdtree_md(pts, k):
+    from scipy.spatial import cKDTree
 
-    def _build(self, xyz, n, cell, gy, gz, cap):
-        from cwipc_util_tpu.ops.cols_knn import _cols_build
+    p = pts.astype(np.float64)
+    dist, _ = cKDTree(p).query(p, k=k + 1)
+    return dist[:, 1:].mean(axis=1)
 
-        capn = 1 << int(np.ceil(np.log2(max(n, 2))))
-        buf = np.zeros((capn, 3), np.float32)
-        buf[:n] = xyz[:n]
-        return _cols_build(
-            jnp.asarray(buf), jnp.int32(n), jnp.float32(cell), gy=gy, gz=gz,
-            cap=cap, chunk=64, vmin_override=jnp.zeros(3, jnp.int32),
+
+class TestColsKnn:
+    @pytest.mark.parametrize(
+        "n,k,cap,voxel_unique",
+        [
+            (900, 8, 12, False),
+            (300, 5, 12, False),
+            (40, 30, 12, False),  # fewer than k neighbours in reach
+            (2000, 12, 4, False),  # over-cap columns: dropped + fixed up
+            (1500, 30, 28, True),  # the downsample postcondition
+            (700, 6, 12, False),
+        ],
+    )
+    def test_fixed_up_md_matches_kdtree(self, n, k, cap, voxel_unique):
+        from cwipc_util_jax.ops.cols_knn import (
+            bruteforce_md_subset,
+            cols_knn_mean_distance,
         )
 
-    def test_matches_bruteforce(self):
-        from cwipc_util_tpu.ops.pallas_cols_select import _M
-        from cwipc_util_tpu.ops.pallas_nn import nn_select_pallas
-
-        rng = np.random.default_rng(7)
-        gy = gz = 24
-        cap_r, cap_q = 12, 8
+        rng = np.random.default_rng(n + k)
         cell = 0.02
-        nr, nq = 800, 500
-        ref = (rng.random((nr, 3), dtype=np.float32) * 0.3 + 0.05).astype(np.float32)
-        qry = (rng.random((nq, 3), dtype=np.float32) * 0.3 + 0.05).astype(np.float32)
-        rb = self._build(ref, nr, cell, gy, gz, cap_r)
-        qb = self._build(qry, nq, cell, gy, gz, cap_q)
-        r_xs, r_ys, r_zs, r_orig, _rv, r_drop, _rps = rb
-        q_xs, q_ys, q_zs, q_orig, _qv, _qd, _qps = qb
-        assert not np.asarray(r_drop).any(), "test scene must not overflow"
-
-        d2m, cid = nn_select_pallas(
-            r_xs, r_ys, r_zs, q_xs, q_ys, q_zs,
-            gy=gy, gz=gz, cap_r=cap_r, cap_q=cap_q, interpret=True,
+        capn = 1 << int(np.ceil(np.log2(max(n, 2))))
+        if voxel_unique:  # one point per distinct cell
+            cells = rng.choice(24 * 24 * 24, size=n, replace=False)
+            v = np.stack(np.unravel_index(cells, (24, 24, 24)), axis=1)
+            pts = ((v + 0.1 + 0.8 * rng.random((n, 3))) * cell).astype(np.float32)
+        else:
+            pts = (rng.random((n, 3)) * 0.3).astype(np.float32)
+        xyz = np.zeros((capn, 3), np.float32)
+        xyz[:n] = pts
+        x, c = jnp.asarray(xyz), jnp.int32(n)
+        md, unc = cols_knn_mean_distance(
+            x, c, jnp.float32(cell), k, gy=24, gz=24, cap=cap, chunk=64,
+            voxel_unique=voxel_unique,
         )
-        d2m, cid = np.asarray(d2m), np.asarray(cid)
+        md = np.asarray(jnp.where(unc, bruteforce_md_subset(x, c, unc, k), md))
+        kk = min(k, n - 1)
+        if kk == k:
+            np.testing.assert_allclose(md[:n], _kdtree_md(pts, k), rtol=1e-5, atol=1e-6)
+        assert not md[n:].any()
 
-        # decode per occupied query slot and compare against brute force
-        gyz = gy * gz
-        capp_r = -(-cap_r // 8) * 8
-        ring = [
-            (dy, dz)
-            for dy in range(-_M, _M + 1)
-            for dz in range(-_M, _M + 1)
-            if max(abs(dy) - 1, 0) ** 2 + max(abs(dz) - 1, 0) ** 2 < _M * _M
-        ]
-        offs = np.array([dy * gz + dz for (dy, dz) in ring])
-        q_orig = np.asarray(q_orig).reshape(gyz, cap_q)
-        r_orig_f = np.asarray(r_orig)
-        maxd = 3.5 * cell  # the coverage radius the ring guarantees
-        checked = 0
-        for p in range(gyz):
-            for s in range(cap_q):
-                qi = q_orig[p, s]
-                if qi < 0:
-                    continue
-                d_all = np.sqrt(((ref - qry[qi]) ** 2).sum(1))
-                best = d_all.min()
-                got_d = np.sqrt(d2m[p, s])
-                if best <= maxd:
-                    assert abs(got_d - best) < 1e-6, (p, s, got_d, best)
-                    j, row = cid[p, s] // capp_r, cid[p, s] % capp_r
-                    ref_slot = (p + offs[j]) * cap_r + row
-                    ri = r_orig_f[ref_slot]
-                    assert ri >= 0
-                    # the reported candidate really is at the min distance
-                    assert abs(d_all[ri] - best) < 1e-6
-                else:
-                    # no in-radius neighbor: anything the kernel found is
-                    # genuinely farther than the coverage radius
-                    assert got_d > maxd - 1e-6
-                checked += 1
-        assert checked == nq
-
-    def test_grid_query_matches_two_scale(self):
-        """nn_grid_query (kernel + fallback) == the two-scale XLA
-        nn_search in DISTANCE for every valid query, including queries
-        that are out of the grid or in overflowing columns (exact
-        brute-force fallback)."""
-        from cwipc_util_tpu.ops.knn import (
-            bruteforce_nn_subset,
-            nn_grid_prepare,
-            nn_grid_query,
-            nn_search,
+    def test_far_outlier_with_clipped_origin(self):
+        """A far outlier outside the grid is reported uncovered and fixed
+        up exactly; the core stays in the grid (vmin_override)."""
+        from cwipc_util_jax.ops.cols_knn import (
+            bruteforce_md_subset,
+            cols_knn_mean_distance,
         )
 
-        rng = np.random.default_rng(13)
-        nr, nq = 3000, 2000
-        rcap, scap = 4096, 2048
+        rng = np.random.default_rng(3)
+        n, k, cell = 800, 8, 0.02
+        pts = (rng.random((n, 3)) * 0.3).astype(np.float32)
+        pts[0] = (-5.0, -5.0, -5.0)
+        xyz = np.zeros((1024, 3), np.float32)
+        xyz[:n] = pts
+        x, c = jnp.asarray(xyz), jnp.int32(n)
+        md, unc = cols_knn_mean_distance(
+            x, c, jnp.float32(cell), k, gy=24, gz=24, cap=12, chunk=64,
+            vmin_override=jnp.zeros(3, jnp.int32),
+        )
+        # the dropped outlier taints the ring of border columns it clamps to
+        assert bool(unc[0]) and int(unc.sum()) < n // 2
+        md = np.asarray(jnp.where(unc, bruteforce_md_subset(x, c, unc, k), md))
+        np.testing.assert_allclose(md[:n], _kdtree_md(pts, k), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Two-scale grid NN (ICP correspondences) vs brute force
+# ---------------------------------------------------------------------------
+
+
+class TestNNSearch:
+    @pytest.mark.parametrize(
+        "nr,nq,maxd,clump",
+        [(800, 500, 0.03, False), (3000, 2000, 0.03, True),
+         (400, 900, 0.05, False), (2000, 100, 0.01, True)],
+    )
+    def test_matches_bruteforce(self, nr, nq, maxd, clump):
+        from cwipc_util_jax.ops.knn import nn_search
+
+        rng = np.random.default_rng(nr + nq)
+        rcap = 1 << int(np.ceil(np.log2(nr)))
+        scap = 1 << int(np.ceil(np.log2(nq)))
         ref = np.zeros((rcap, 3), np.float32)
         qry = np.zeros((scap, 3), np.float32)
         ref[:nr] = rng.random((nr, 3), dtype=np.float32) * 0.4
-        # a dense clump to overflow columns + some out-of-grid queries
-        ref[100:200] = ref[100] + rng.random((100, 3), np.float32) * 0.001
-        qry[:nq] = rng.random((nq, 3), dtype=np.float32) * 0.5 - 0.02
-        maxd = np.float32(0.03)
-        cell = np.float32(maxd / 3.5)
-        core = ref[:nr]
-        vmin = np.floor(core.min(axis=0) / cell).astype(np.int32)
-        ext = np.floor(core.max(axis=0) / cell).astype(np.int32) - vmin + 1
-        gy, gz, cap_r, cap_q = int(ext[1]) + 2, int(ext[2]) + 2, 40, 40
-
-        prep = nn_grid_prepare(
-            jnp.asarray(ref), jnp.int32(nr), jnp.float32(cell),
-            gy=gy, gz=gz, cap=cap_r, vmin=jnp.asarray(vmin),
+        if clump:  # a dense clump: fine cells overflow, the coarse pass covers
+            ref[100:200] = ref[100] + rng.random((100, 3), np.float32) * 0.001
+        qry[:nq] = rng.random((nq, 3), dtype=np.float32) * 0.45 - 0.02
+        d, i = nn_search(jnp.asarray(qry), jnp.int32(nq), jnp.asarray(ref),
+                         jnp.int32(nr), jnp.float32(maxd))
+        d, i = np.asarray(d), np.asarray(i)
+        full = np.sqrt(((qry[:nq, None, :] - ref[None, :nr, :]) ** 2).sum(-1))
+        best = full.min(axis=1)
+        inside = best <= maxd * (1 - 1e-5)
+        np.testing.assert_allclose(d[:nq][inside], best[inside], rtol=1e-5, atol=1e-6)
+        found = np.isfinite(d[:nq])
+        assert (found >= inside).all()
+        assert (d[:nq][found] <= maxd * (1 + 1e-5)).all()
+        np.testing.assert_allclose(
+            full[np.arange(nq)[found], i[:nq][found]], d[:nq][found], atol=1e-6
         )
-        dist, idx, need_fix = nn_grid_query(
-            jnp.asarray(qry), jnp.int32(nq), prep, jnp.float32(cell),
-            jnp.float32(maxd), gy=gy, gz=gz, cap_r=cap_r, cap_q=cap_q,
-            vmin=jnp.asarray(vmin), interpret=True,
-        )
-        fd, fi = bruteforce_nn_subset(
-            jnp.asarray(qry), jnp.int32(nq), need_fix,
-            jnp.asarray(ref), jnp.int32(nr), jnp.float32(maxd),
-        )
-        dist = np.where(np.asarray(need_fix), np.asarray(fd), np.asarray(dist))
-        idx = np.where(np.asarray(need_fix), np.asarray(fi), np.asarray(idx))
-
-        d_ref, i_ref = nn_search(
-            jnp.asarray(qry), jnp.int32(nq), jnp.asarray(ref), jnp.int32(nr),
-            jnp.float32(maxd),
-        )
-        d_ref, i_ref = np.asarray(d_ref), np.asarray(i_ref)
-        # two-scale can MISS matches (overflowing fine cells, coverage
-        # gaps); the grid+fallback path is exact, so require: wherever the
-        # two-scale found a match, the grid found one at least as close,
-        # and every grid match is genuine
-        both = np.isfinite(d_ref[:nq])
-        assert (dist[:nq][both] <= d_ref[:nq][both] + 1e-6).all()
-        found = np.isfinite(dist[:nq])
-        assert found.sum() >= both.sum()
-        ii = idx[:nq][found]
-        true_d = np.sqrt(((ref[ii] - qry[:nq][found]) ** 2).sum(1))
-        np.testing.assert_allclose(dist[:nq][found], true_d, atol=1e-5)
-        assert (dist[:nq][found] <= maxd + 1e-6).all()
-        # exactness spot check vs full brute force on a sample
-        sel = rng.choice(nq, 200, replace=False)
-        for qi in sel:
-            d_all = np.sqrt(((ref[:nr] - qry[qi]) ** 2).sum(1)).min()
-            if d_all <= maxd - 1e-6:
-                assert abs(dist[qi] - d_all) < 1e-5, (qi, dist[qi], d_all)
-            else:
-                assert not np.isfinite(dist[qi]) or dist[qi] >= d_all - 1e-5
+        assert not np.isfinite(d[nq:]).any() and (i[nq:] == -1).all()
 
 
-class TestGridParams:
-    """Host-side grid parameter policy (ops/knn.nn_grid_params).
+# ---------------------------------------------------------------------------
+# Every device program lowers for CUDA
+# ---------------------------------------------------------------------------
 
-    Round-5 change: column caps no longer have to cover the densest
-    column — over-cap columns are exact via the drop_ring -> brute-force
-    fixup — so dense human-scale scenes at large correspondences (the
-    `cwipc register` aligner runs at auto-correspondence ~0.14 m, whose
-    4 cm cells hold 250+ points) now get grid params instead of the
-    ~20x-slower two-scale fallback."""
 
-    def _dense_scene(self, rng, n=20000):
-        """Human-scale scan-like cloud: a 0.6 x 1.9 x 0.6 m extent whose
-        points concentrate on a torso-sized blob (real scans are surfaces
-        — per-column occupancy is far above uniform)."""
-        pts = rng.random((n, 3), dtype=np.float32)
-        pts[:, 0] = pts[:, 0] * 0.6
-        pts[:, 1] = pts[:, 1] * 1.9
-        pts[:, 2] = pts[:, 2] * 0.6
-        nb = n // 3
-        pts[:nb] = (
-            np.float32([0.3, 1.0, 0.3])
-            + rng.random((nb, 3), dtype=np.float32) * 0.1
-        )
-        return pts
+def _bench_buf(cap=4096):
+    from cwipc_util_jax.models.synthetic import _generate
 
-    def test_dense_scene_accepted_with_capped_columns(self):
-        from cwipc_util_tpu.ops.knn import nn_grid_params
+    return _generate(48, 48, cap, jnp.float32(0.5))
 
-        rng = np.random.default_rng(5)
-        ref = self._dense_scene(rng, 20000)
-        src = self._dense_scene(rng, 10000)
-        maxd = 0.14  # register-flow auto-correspondence scale
-        params = nn_grid_params(src, ref, maxd)
-        assert params is not None, (
-            "dense over-cap scenes must use the grid + fixup, "
-            "not the two-scale fallback"
-        )
-        perm, gy, gz, cap_r, cap_q, origin = params
-        assert cap_r <= 128 and cap_q <= 128
-        # the densest 4cm column of this scene genuinely exceeds the cap
-        cell = maxd / 3.5
-        p = list(perm)
-        v = np.floor(ref[:, p] / cell).astype(np.int64)
-        cols = (v[:, 1] - v[:, 1].min()) * 1000 + (v[:, 2] - v[:, 2].min())
-        assert np.bincount(cols).max() > cap_r
 
-    def test_prefers_axis_with_fewer_fixups(self):
-        from cwipc_util_tpu.ops.knn import nn_grid_params
+def _lower_chain():
+    from cwipc_util_jax.ops.chain import downsample_outliers_tilefilter
 
-        rng = np.random.default_rng(6)
-        # A flat slab in the x-y plane: with x or y as the column
-        # (stacking) axis, whole level-set curves of the slab pile into
-        # single (thin-axis, other) columns (measured colmax ~370 here);
-        # with z as the column axis each (x, y) column holds only the
-        # slab's thin depth (colmax ~15, zero fixups).
-        pts = rng.random((30000, 3), dtype=np.float32)
-        pts[:, 0] *= 1.2
-        pts[:, 1] *= 1.2
-        pts[:, 2] *= 0.02
-        params = nn_grid_params(pts[:10000], pts[10000:], 0.07)
-        assert params is not None
-        perm = params[0]
-        assert perm[0] == 2, perm
+    f = lambda b: downsample_outliers_tilefilter(
+        b, jnp.float32(0.08), k=30, mult=jnp.float32(1.0), tile=jnp.uint32(1),
+        out_capacity=2048)
+    return f, (_bench_buf(),)
 
-    def test_fallback_budget_rejects_degenerate(self):
-        from cwipc_util_tpu.ops.knn import nn_grid_params
 
-        rng = np.random.default_rng(8)
-        # one tiny dense ball: every column overflows on every axis and
-        # every query is inside the tainted ring -> fixup work == full
-        # brute force; a tight budget must reject it
-        pts = (rng.random((50000, 3), dtype=np.float32) * 0.01).astype(np.float32)
-        params = nn_grid_params(
-            pts[:25000], pts[25000:], 0.1, fallback_budget=1e6
-        )
-        assert params is None
+def _lower_exact_chain():
+    from cwipc_util_jax.ops.chain import downsample_outliers_tilefilter_exact
+
+    f = lambda b: downsample_outliers_tilefilter_exact(
+        b, jnp.float32(0.08), k=30, mult=jnp.float32(1.0), tile=jnp.uint32(1),
+        out_capacity=2048, gy=32, gz=16, cap=28)
+    return f, (_bench_buf(),)
+
+
+def _lower_downsample(exact_keys, merged):
+    from cwipc_util_jax.ops.voxelize import downsample
+
+    f = lambda b: downsample(b, jnp.float32(0.08), exact_keys=exact_keys,
+                             merged_exact=merged)
+    return f, (_bench_buf(),)
+
+
+def _lower_compact():
+    b = _bench_buf()
+    return (lambda b, keep: compaction.compact(b, keep)), (b, b.valid_mask())
+
+
+def _lower_compact_cm():
+    b = _bench_buf()
+    return (lambda x, keep, c: compaction.compact_cm(x[:, 0], x[:, 1], x[:, 2],
+                                                     b.rgba, keep, c)), (
+        b.xyz, b.valid_mask(), b.count)
+
+
+def _lower_cols_knn():
+    from cwipc_util_jax.ops.cols_knn import cols_knn_mean_distance
+
+    b = _bench_buf()
+    f = lambda x, c: cols_knn_mean_distance(x, c, jnp.float32(0.08), 30, gy=32,
+                                            gz=16, cap=28, voxel_unique=True)
+    return f, (b.xyz, b.count)
+
+
+def _lower_icp(variant):
+    from cwipc_util_jax.registration.fine import _icp_fused
+
+    b = _bench_buf()
+    z = jnp.zeros_like(b.xyz)
+    f = lambda s, c, n: _icp_fused(
+        s, c, s, c, jnp.float32(0.05), jnp.float32(1e-6), n, n,
+        jnp.float32(1e-3), variant=variant, max_iters=4)
+    return f, (b.xyz, b.count, z)
+
+
+def _sharded_args():
+    cap = 1024
+    return (jnp.zeros((2, cap, 3)), jnp.zeros((2, cap), jnp.uint32),
+            jnp.zeros((2,), jnp.int32), jnp.float32(0.05), jnp.float32(1.0),
+            jnp.uint32(0))
+
+
+def _lower_rangemerge():
+    from cwipc_util_jax.parallel.mesh import make_mesh
+    from cwipc_util_jax.parallel.rangemerge import make_sharded_chain_rangemerge
+
+    return make_sharded_chain_rangemerge(make_mesh(2), k=8), _sharded_args()
+
+
+def _lower_sharded_exact():
+    from cwipc_util_jax.parallel.mesh import make_mesh
+    from cwipc_util_jax.parallel.pointaxis import make_sharded_chain_exact
+
+    step = make_sharded_chain_exact(make_mesh(2), k=8, gy=32, gz=32, cap=16)
+    return step, _sharded_args()
+
+
+def _lower_sharded_chain():
+    from cwipc_util_jax.parallel.mesh import make_mesh
+    from cwipc_util_jax.parallel.pointaxis import make_sharded_chain
+
+    return make_sharded_chain(make_mesh(2), k=8), _sharded_args()
+
+
+# (builder, whether the Triton window kernel is part of the program)
+LOWERINGS = {
+    "fast_chain": (_lower_chain, True),
+    "exact_chain": (_lower_exact_chain, False),
+    "downsample": (lambda: _lower_downsample(False, False), False),
+    "downsample_exact_keys": (lambda: _lower_downsample(True, False), False),
+    "downsample_merged_keys": (lambda: _lower_downsample(True, True), False),
+    "compact": (_lower_compact, False),
+    "compact_cm": (_lower_compact_cm, False),
+    "cols_knn_mean_distance": (_lower_cols_knn, False),
+    "icp_p2point": (lambda: _lower_icp("p2point"), False),
+    "icp_p2plane": (lambda: _lower_icp("p2plane"), False),
+    "icp_gicp": (lambda: _lower_icp("gicp"), False),
+    "rangemerge": (_lower_rangemerge, True),
+    "sharded_chain": (_lower_sharded_chain, True),
+    "sharded_chain_exact": (_lower_sharded_exact, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOWERINGS))
+def test_lowers_for_cuda(name):
+    build, has_kernel = LOWERINGS[name]
+    f, args = build()
+    text = jax.jit(f).trace(*args).lower(lowering_platforms=("cuda",)).as_text()
+    # every custom call is a CUDA one: the Triton kernel or a CUDA library
+    targets = set(re.findall(r"custom_call @([\w.$]+)", text))
+    assert all(t.startswith(("__gpu$", "cu")) for t in targets), targets
+    assert ("__gpu$xla.gpu.triton" in targets) == has_kernel
+
+
+class TestGpuDispatch:
+    def test_window_md_picks_kernel_for_cuda_only(self):
+        from cwipc_util_jax.ops.chain import window_mean_distance_cm
+
+        x = jnp.zeros((2048,), jnp.float32)
+        f = jax.jit(lambda x, c: window_mean_distance_cm(x, x, x, c, k=30, window=16))
+        low = lambda p: f.trace(x, jnp.int32(5)).lower(lowering_platforms=(p,)).as_text()
+        assert "xla.gpu.triton" in low("cuda")
+        assert "triton" not in low("cpu")
+
+    def test_public_remove_outliers_takes_column_grid_on_gpu(self, monkeypatch):
+        """cwipc_remove_outliers sends a GPU backend to the column-grid
+        kNN (plain XLA), the CPU backend to scipy's KD-tree."""
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax.ops import cols_knn
+
+        gen = cwipc.cwipc_synthetic(0, 10000)
+        gen.start()
+        pc = cwipc.cwipc_downsample(gen.get(), 0.02)
+        gen.stop()
+        assert pc.count() > 4096
+        calls = []
+        real = cols_knn.cols_knn_mean_distance
+        monkeypatch.setattr(cols_knn, "cols_knn_mean_distance",
+                            lambda *a, **kw: (calls.append(1), real(*a, **kw))[1])
+        cpu_out = cwipc.cwipc_remove_outliers(pc, 30, 1.0, False)
+        assert not calls
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        gpu_out = cwipc.cwipc_remove_outliers(pc, 30, 1.0, False)
+        assert calls
+        # both exact: the same survivors
+        a = cpu_out.get_numpy_matrix(onlyGeometry=True)
+        b = gpu_out.get_numpy_matrix(onlyGeometry=True)
+        assert np.array_equal(a, b)

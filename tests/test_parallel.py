@@ -4,15 +4,14 @@ import jax
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.parallel.mesh import cpu_devices, make_mesh
-from cwipc_util_tpu.parallel.pointaxis import sharded_downsample
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.parallel.mesh import cpu_devices, make_mesh
+from cwipc_util_jax.parallel.pointaxis import sharded_downsample
 
 
 @pytest.fixture(scope="module")
 def mesh():
-    # Explicit CPU device objects: env vars (JAX_PLATFORMS) are ignored by
-    # some TPU plugins, so the virtual 8-device mesh must be pinned by
+    # Explicit CPU device objects: the virtual 8-device mesh is pinned by
     # device object, never by default platform.
     cpus = cpu_devices(2)
     if not cpus:
@@ -55,8 +54,8 @@ class TestCameraFusionSemantics:
         fusion semantics, cwipc_filters.cpp:89-172 tile OR)."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.parallel.fusion import make_fusion_step
-        from cwipc_util_tpu.parallel.mesh import camera_sharding
+        from cwipc_util_jax.parallel.fusion import make_fusion_step
+        from cwipc_util_jax.parallel.mesh import camera_sharding
 
         d = mesh.devices.size
         cap = 2048
@@ -92,8 +91,8 @@ class TestShardedChain:
         set and survivor statistics as the single-device fused chain."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.ops.chain import downsample_outliers_tilefilter
-        from cwipc_util_tpu.parallel.pointaxis import sharded_chain
+        from cwipc_util_jax.ops.chain import downsample_outliers_tilefilter
+        from cwipc_util_jax.parallel.pointaxis import sharded_chain
 
         gen = cwipc.cwipc_synthetic(0, 4000)
         gen.start()
@@ -136,8 +135,8 @@ class TestShardedChainRangeMerge:
         set, with clean flags."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.ops.chain import downsample_outliers_tilefilter
-        from cwipc_util_tpu.parallel.rangemerge import sharded_chain_rangemerge
+        from cwipc_util_jax.ops.chain import downsample_outliers_tilefilter
+        from cwipc_util_jax.parallel.rangemerge import sharded_chain_rangemerge
 
         gen = cwipc.cwipc_synthetic(0, 4000)
         gen.start()
@@ -177,8 +176,8 @@ class TestShardedChainRangeMerge:
     def test_rangemerge_output_is_morton_ordered(self, mesh):
         """Range concatenation must preserve the single-device output
         contract: global Morton order end to end."""
-        from cwipc_util_tpu.ops.voxelize import morton3
-        from cwipc_util_tpu.parallel.rangemerge import sharded_chain_rangemerge
+        from cwipc_util_jax.ops.voxelize import morton3
+        from cwipc_util_jax.parallel.rangemerge import sharded_chain_rangemerge
 
         gen = cwipc.cwipc_synthetic(0, 4000)
         gen.start()
@@ -201,7 +200,7 @@ class TestShardedChainRangeMerge:
     def test_rangemerge_block_overflow_is_flagged(self, mesh):
         """A per-target block too small for the split must raise flag bit 0,
         never silently drop rows."""
-        from cwipc_util_tpu.parallel.rangemerge import sharded_chain_rangemerge
+        from cwipc_util_jax.parallel.rangemerge import sharded_chain_rangemerge
 
         gen = cwipc.cwipc_synthetic(0, 4000)
         gen.start()
@@ -219,8 +218,8 @@ class TestShardedChainRangeMerge:
         merge must emit exactly one centroid, clean flags."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.core.buffers import PointBuffer
-        from cwipc_util_tpu.parallel.rangemerge import sharded_chain_rangemerge
+        from cwipc_util_jax.core.buffers import PointBuffer
+        from cwipc_util_jax.parallel.rangemerge import sharded_chain_rangemerge
 
         cap = 1024
         rng = np.random.default_rng(7)
@@ -244,9 +243,9 @@ class TestShardedChainRangeMerge:
         with the single-device chain / zero output respectively."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.core.buffers import PointBuffer
-        from cwipc_util_tpu.ops.chain import downsample_outliers_tilefilter
-        from cwipc_util_tpu.parallel.rangemerge import sharded_chain_rangemerge
+        from cwipc_util_jax.core.buffers import PointBuffer
+        from cwipc_util_jax.ops.chain import downsample_outliers_tilefilter
+        from cwipc_util_jax.parallel.rangemerge import sharded_chain_rangemerge
 
         gen = cwipc.cwipc_synthetic(0, 4000)
         gen.start()
@@ -281,8 +280,8 @@ class TestShardedChainExact:
         it cannot change results)."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.ops.chain import downsample_outliers_tilefilter_exact
-        from cwipc_util_tpu.parallel.pointaxis import sharded_chain_exact
+        from cwipc_util_jax.ops.chain import downsample_outliers_tilefilter_exact
+        from cwipc_util_jax.parallel.pointaxis import sharded_chain_exact
 
         gen = cwipc.cwipc_synthetic(0, 4000)
         gen.start()
@@ -326,8 +325,8 @@ class TestMortonExtentGuard:
         to exact keys instead)."""
         import numpy as np
 
-        import cwipc_util_tpu as cwipc
-        from cwipc_util_tpu.parallel.pointaxis import check_morton_extent
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax.parallel.pointaxis import check_morton_extent
 
         pts = [(0.0, 0.0, 0.0, 0, 0, 0, 0), (30.0, 0.0, 0.0, 0, 0, 0, 0)]
         pc = cwipc.cwipc_from_points(pts, 0)
@@ -344,13 +343,13 @@ class TestShardedRegistration:
     single-device programs per camera."""
 
     def test_sharded_camera_nn_and_align_match_single_device(self, mesh):
-        from cwipc_util_tpu.ops.knn import nn_search
-        from cwipc_util_tpu.parallel.registration import (
+        from cwipc_util_jax.ops.knn import nn_search
+        from cwipc_util_jax.parallel.registration import (
             pack_camera_views,
             sharded_camera_align,
             sharded_camera_nn,
         )
-        from cwipc_util_tpu.registration.fine import _icp_fused
+        from cwipc_util_jax.registration.fine import _icp_fused
 
         import jax.numpy as jnp
 
@@ -391,8 +390,8 @@ class TestShardedRegistration:
                 jnp.float32(corr), jnp.float32(1e-6),
                 jnp.zeros((r_xyz.shape[1], 3), jnp.float32),
                 jnp.zeros((s_xyz.shape[1], 3), jnp.float32),
-                jnp.float32(1e-3), jnp.zeros(3, jnp.int32),
-                variant="p2point", max_iters=6, grid=None,
+                jnp.float32(1e-3),
+                variant="p2point", max_iters=6,
             ))
             assert np.allclose(T1, poses_sh[d], atol=1e-5)
             # the recovered translation counters the camera's shift

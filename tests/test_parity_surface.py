@@ -5,6 +5,7 @@ classes (TransformFinder / AnalyzePointCloud / AnalysisTestCreator /
 DropWriter / FileWriter)."""
 
 import ctypes
+import gc
 import json
 import os
 import sys
@@ -12,13 +13,16 @@ import sys
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.registration.cameraconfig import CameraConfig, Transform
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.registration.cameraconfig import CameraConfig, Transform
 
 
 class TestNativeHandoff:
     def test_as_cwipc_p_roundtrip(self):
         """as_cwipc_p materializes a native twin usable through the C ABI."""
+        # the allocation counter is per process: clouds that earlier tests
+        # left in reference cycles count until the collector frees them
+        gc.collect()
         pc = cwipc.cwipc_from_points(
             [(1.0, 2.0, 3.0, 10, 20, 30, 1), (4.0, 5.0, 6.0, 40, 50, 60, 2)], 1234
         )
@@ -26,7 +30,7 @@ class TestNativeHandoff:
         handle = pc.as_cwipc_p()
         assert handle
         assert pc.as_cwipc_p() is handle  # cached
-        from cwipc_util_tpu.util import cwipc_util_dll_load
+        from cwipc_util_jax.util import cwipc_util_dll_load
 
         dll = cwipc_util_dll_load()
         dll.cwipc_pointcloud_count.restype = ctypes.c_int
@@ -52,8 +56,8 @@ class TestNativeHandoff:
         pc.free()
 
     def test_python_native_handles_raise(self):
-        from cwipc_util_tpu.abstract import cwipc_sink_wrapper, cwipc_source_wrapper
-        from cwipc_util_tpu.core.errors import CwipcError
+        from cwipc_util_jax.abstract import cwipc_sink_wrapper, cwipc_source_wrapper
+        from cwipc_util_jax.core.errors import CwipcError
 
         with pytest.raises(CwipcError):
             cwipc_source_wrapper(None).as_cwipc_source_p()
@@ -112,8 +116,8 @@ class TestCameraConfigParity:
 
 class TestPlotter:
     def test_plotter_writes_file(self, tmp_path):
-        from cwipc_util_tpu.registration.abstract import AnalysisResults
-        from cwipc_util_tpu.registration.plot import Plotter, set_default_plot_style
+        from cwipc_util_jax.registration.abstract import AnalysisResults
+        from cwipc_util_jax.registration.plot import Plotter, set_default_plot_style
 
         res = AnalysisResults()
         res.tilemask = 1
@@ -126,7 +130,7 @@ class TestPlotter:
         p.plot(filename=out, which=["count", "cumulative", "delta"])
         assert os.path.getsize(out) > 0
         set_default_plot_style("count,delta")
-        from cwipc_util_tpu.registration import plot as plot_mod
+        from cwipc_util_jax.registration import plot as plot_mod
 
         assert plot_mod.DEFAULT_PLOT_STYLE == ["count", "delta"]
         set_default_plot_style(["count", "cumulative"])
@@ -134,7 +138,7 @@ class TestPlotter:
 
 class TestFilterStats:
     def test_print1stat(self, capsys):
-        from cwipc_util_tpu.filters.voxelize import CustomFilter
+        from cwipc_util_jax.filters.voxelize import CustomFilter
 
         f = CustomFilter(0.05)
         f.print1stat("duration", [0.5, 1.5])
@@ -148,13 +152,13 @@ class TestScriptClasses:
     def _grab_args(self, **kw):
         import argparse
 
-        from cwipc_util_tpu.scripts.cwipc_grab import make_parser
+        from cwipc_util_jax.scripts.cwipc_grab import make_parser
 
         argv = kw.pop("argv")
         return make_parser().parse_args(argv)
 
     def test_filewriter_save_pc_and_setup_encoder(self, tmp_path):
-        from cwipc_util_tpu.scripts.cwipc_grab import FileWriter
+        from cwipc_util_jax.scripts.cwipc_grab import FileWriter
 
         w = FileWriter(str(tmp_path), "pointcloud-%s.ply")
         pc = cwipc.cwipc_from_points([(0.0, 0.0, 0.0, 1, 2, 3, 1)], 42)
@@ -168,7 +172,7 @@ class TestScriptClasses:
         import threading
         import time
 
-        from cwipc_util_tpu.scripts.cwipc_grab import FileWriter
+        from cwipc_util_jax.scripts.cwipc_grab import FileWriter
 
         w = FileWriter(str(tmp_path), "pointcloud-%s.ply", incore=True)
         producer = threading.Thread(target=lambda: time.sleep(0.2))
@@ -183,7 +187,7 @@ class TestScriptClasses:
     def test_dropwriter_records(self, tmp_path):
         import argparse
 
-        from cwipc_util_tpu.scripts.cwipc_timing import DropWriter
+        from cwipc_util_jax.scripts.cwipc_timing import DropWriter
 
         out = str(tmp_path / "t.csv")
         args = argparse.Namespace(details=False, savergb=0, output=out)
@@ -201,7 +205,7 @@ class TestScriptClasses:
     def test_analysis_test_creator(self, tmp_path):
         import argparse
 
-        from cwipc_util_tpu.scripts.cwipc_create_analysis_test import AnalysisTestCreator
+        from cwipc_util_jax.scripts.cwipc_create_analysis_test import AnalysisTestCreator
 
         args = argparse.Namespace(
             ncamera=2, noise=0.0, translation=0.01, rotation=0.02, seed=1,

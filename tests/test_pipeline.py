@@ -12,10 +12,10 @@ import time
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu import codec
-from cwipc_util_tpu.models.capturer import cwipc_capturer
-from cwipc_util_tpu.models.playback import cwipc_playback
+import cwipc_util_jax as cwipc
+from cwipc_util_jax import codec
+from cwipc_util_jax.models.capturer import cwipc_capturer
+from cwipc_util_jax.models.playback import cwipc_playback
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +57,7 @@ class TestCodec:
         """An n==0 frame must decode to a HOST-backed cloud like the n>0
         path: an empty frame in an accelerator-free decode pipeline must
         not force a device upload (codec decoder n==0 branch)."""
-        from cwipc_util_tpu import cwipc_from_points
+        from cwipc_util_jax import cwipc_from_points
 
         empty = cwipc_from_points([], 777)
         enc = codec.cwipc_new_encoder(params=codec.cwipc_encoder_params(octree_bits=9))
@@ -308,7 +308,7 @@ class TestPlayback:
         cwipc.cwipc_write(fn, small_pc)
         src = cwipc_playback([fn], loop=True)
         # the clone cache must serve frames 2..n without re-reading the file
-        from cwipc_util_tpu.models import playback as playback_mod
+        from cwipc_util_jax.models import playback as playback_mod
 
         reads = []
         orig = playback_mod._Filesource._read_file
@@ -395,10 +395,10 @@ class TestNetworkLoopback:
 
     def test_passthrough_tcp(self, small_pc):
         """clouds -> passthrough sink -> TCP -> netclient -> passthrough source."""
-        from cwipc_util_tpu.net.sink_netserver import cwipc_sink_netserver
-        from cwipc_util_tpu.net.sink_passthrough import cwipc_sink_passthrough
-        from cwipc_util_tpu.net.source_netclient import cwipc_source_netclient
-        from cwipc_util_tpu.net.source_passthrough import cwipc_source_passthrough
+        from cwipc_util_jax.net.sink_netserver import cwipc_sink_netserver
+        from cwipc_util_jax.net.sink_passthrough import cwipc_sink_passthrough
+        from cwipc_util_jax.net.source_netclient import cwipc_source_netclient
+        from cwipc_util_jax.net.source_passthrough import cwipc_source_passthrough
 
         port = self._free_port()
         rawsink = cwipc_sink_netserver(port, nodrop=True)
@@ -439,10 +439,10 @@ class TestNetworkLoopback:
 
     def test_encoder_tcp(self, small_pc):
         """clouds -> encoder sink -> TCP -> netclient -> decoder source."""
-        from cwipc_util_tpu.net.sink_encoder import cwipc_sink_encoder
-        from cwipc_util_tpu.net.sink_netserver import cwipc_sink_netserver
-        from cwipc_util_tpu.net.source_decoder import cwipc_activesource_decoder
-        from cwipc_util_tpu.net.source_netclient import cwipc_source_netclient
+        from cwipc_util_jax.net.sink_encoder import cwipc_sink_encoder
+        from cwipc_util_jax.net.sink_netserver import cwipc_sink_netserver
+        from cwipc_util_jax.net.source_decoder import cwipc_activesource_decoder
+        from cwipc_util_jax.net.source_netclient import cwipc_source_netclient
 
         port = self._free_port()
         rawsink = cwipc_sink_netserver(port, nodrop=True)
@@ -483,7 +483,7 @@ class TestNetworkLoopback:
 
 class TestSynchronizer:
     def test_fuses_matching_timestamps(self, small_pc):
-        from cwipc_util_tpu.net.source_synchronizer import cwipc_source_synchronizer
+        from cwipc_util_jax.net.source_synchronizer import cwipc_source_synchronizer
 
         class ListSource:
             def __init__(self, pcs):
@@ -584,8 +584,8 @@ class TestPlaybackTileconfigSeek:
         (reference: playback.py:136-140)."""
         import json
 
-        import cwipc_util_tpu as cwipc
-        from cwipc_util_tpu.models.playback import cwipc_playback
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax.models.playback import cwipc_playback
 
         cwipc.cwipc_write(str(tmp_path / "pointcloud-1000.ply"), small_pc)
         info = {"tileInfo": [
@@ -607,8 +607,8 @@ class TestPlaybackTileconfigSeek:
         (playback.py:44-45 returns False; only raw-recording capturers
         implement seek) — inpoint/outpoint are the file-level positioning
         mechanism (covered by test_inpoint_outpoint)."""
-        import cwipc_util_tpu as cwipc
-        from cwipc_util_tpu.models.playback import cwipc_playback
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax.models.playback import cwipc_playback
 
         cwipc.cwipc_write(str(tmp_path / "pointcloud-1000.ply"), small_pc)
         src = cwipc_playback(str(tmp_path), ext=".ply")
@@ -628,8 +628,8 @@ class TestMulticamPlayback:
 
         import numpy as np
 
-        import cwipc_util_tpu as cwipc
-        from cwipc_util_tpu.models.capturer import cwipc_capturer
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax.models.capturer import cwipc_capturer
 
         for cam in range(2):
             cwipc.cwipc_write(str(tmp_path / f"camera{cam}.ply"), small_pc)

@@ -7,14 +7,15 @@ three proxy tests the reference skips ("Fails for reasons unknown") run
 unskipped here.
 """
 
+import gc
 import os
 import struct
 
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.models.playback import cwipc_playback
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.models.playback import cwipc_playback
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 PLY_DIRNAME = os.path.join(FIXTURES, "input")
@@ -183,6 +184,7 @@ class TestReferenceSuite:
         pc.free()
 
     def test_cwipc_dangling_allocations(self):
+        gc.collect()  # free earlier tests' cyclic garbage first
         old_count = cwipc.cwipc_dangling_allocations(True)
         pc = cwipc.cwipc_read(PLY_FILENAME, 1234)
         assert cwipc.cwipc_dangling_allocations(True) == old_count + 1
@@ -190,6 +192,7 @@ class TestReferenceSuite:
         assert cwipc.cwipc_dangling_allocations(True) == old_count
 
     def test_cwipc_clone(self):
+        gc.collect()
         old_count = cwipc.cwipc_dangling_allocations(False)
         pc = cwipc.cwipc_read(PLY_FILENAME, 1234)
         new_pc = pc.clone()

@@ -7,24 +7,24 @@ import math
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.filters.simulatecams import SimulatecamsFilter
-from cwipc_util_tpu.registration.analyze import (
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.filters.simulatecams import SimulatecamsFilter
+from cwipc_util_jax.registration.analyze import (
     OverlapAnalyzer,
     RegistrationAnalyzer,
     RegistrationAnalyzerSymmetric,
 )
-from cwipc_util_tpu.registration.cameraconfig import CameraConfig, default_cameraconfig
-from cwipc_util_tpu.registration.fine import (
+from cwipc_util_jax.registration.cameraconfig import CameraConfig, default_cameraconfig
+from cwipc_util_jax.registration.fine import (
     RegistrationComputer_ICP_Generalized,
     RegistrationComputer_ICP_Point2Plane,
     RegistrationComputer_ICP_Point2Point,
 )
-from cwipc_util_tpu.registration.multicamera import (
+from cwipc_util_jax.registration.multicamera import (
     MultiCameraIterative,
     MultiCameraOneToAllOthers,
 )
-from cwipc_util_tpu.registration.util import (
+from cwipc_util_jax.registration.util import (
     cwipc_tilefilter_masked,
     cwipc_transform,
     get_tiles_used,
@@ -233,8 +233,8 @@ class TestGICP:
         the reference's windowed normal estimates), point-to-plane stalls at
         a visibly wrong pose while GICP, weighing BOTH clouds' disc
         covariances, recovers the ground-truth transform."""
-        from cwipc_util_tpu import cwipc_from_numpy_matrix
-        from cwipc_util_tpu.registration.fine import (
+        from cwipc_util_jax import cwipc_from_numpy_matrix
+        from cwipc_util_jax.registration.fine import (
             RegistrationComputer_ICP_Generalized,
             RegistrationComputer_ICP_Point2Plane,
         )
@@ -285,7 +285,7 @@ class TestGICP:
         (rmse 0) alias registration.  The misalignment must stay well inside
         half that alias spacing or the aligner may legitimately land on the
         neighboring alias."""
-        from cwipc_util_tpu.registration.fine import RegistrationComputer_ICP_Generalized
+        from cwipc_util_jax.registration.fine import RegistrationComputer_ICP_Generalized
 
         T_true = _rotation_y(0.03) @ _translation(0.01, 0.005, -0.01)
         moved = cwipc_transform(synth_pc, np.linalg.inv(T_true))
@@ -423,7 +423,7 @@ class TestCoarseAruco:
         the marker's known pose."""
         import cv2
 
-        from cwipc_util_tpu.registration.coarse import (
+        from cwipc_util_jax.registration.coarse import (
             DEFAULT_MARKER_SIZE,
             MultiCameraCoarseAruco,
             _marker_world_corners,
@@ -468,8 +468,8 @@ class TestPointPicking:
     def test_pick_index_at_projects_correctly(self, synth_pc):
         """The interactive picker's deprojection core: clicking exactly on
         a point's projected pixel returns that point (front-most wins)."""
-        from cwipc_util_tpu.io.render import OrbitCamera
-        from cwipc_util_tpu.registration.util import (
+        from cwipc_util_jax.io.render import OrbitCamera
+        from cwipc_util_jax.registration.util import (
             pick_index_at,
             project_point_indices,
         )
@@ -498,14 +498,14 @@ class TestPointPicking:
         assert hits >= 5
 
     def test_pick_points_headless_returns_empty(self, synth_pc):
-        from cwipc_util_tpu.registration.util import pick_points
+        from cwipc_util_jax.registration.util import pick_points
 
         assert pick_points("t", synth_pc, count=4, timeout_ms=100) == []
 
     def test_interactive_colortarget_falls_back(self):
         """Headless: the interactive ColorTarget variant falls back to the
         automated color segmentation."""
-        from cwipc_util_tpu.registration.coarse import (
+        from cwipc_util_jax.registration.coarse import (
             MultiCameraCoarseColorTargetInteractive,
         )
 
@@ -519,8 +519,8 @@ class TestNormals:
         orient_normals semantics used by the point2plane aligners)."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.core.buffers import PointBuffer
-        from cwipc_util_tpu.registration.normals import estimate_normals
+        from cwipc_util_jax.core.buffers import PointBuffer
+        from cwipc_util_jax.registration.normals import estimate_normals
 
         n_side = 32
         g = np.linspace(0.0, 0.31, n_side, dtype=np.float32)
@@ -549,8 +549,8 @@ class TestNormals:
         the ~radius^2 neighborhood variance (normals.py accum)."""
         import jax.numpy as jnp
 
-        from cwipc_util_tpu.core.buffers import PointBuffer
-        from cwipc_util_tpu.registration.normals import estimate_normals
+        from cwipc_util_jax.core.buffers import PointBuffer
+        from cwipc_util_jax.registration.normals import estimate_normals
 
         n_side = 32
         g = np.linspace(0.0, 0.31, n_side, dtype=np.float32)
@@ -581,7 +581,7 @@ class TestCoarsePreSeed:
 
     @staticmethod
     def _stub(observations):
-        from cwipc_util_tpu.registration.coarse import MultiCameraCoarse
+        from cwipc_util_jax.registration.coarse import MultiCameraCoarse
 
         class StubCoarse(MultiCameraCoarse):
             def __init__(self, obs):
@@ -603,7 +603,7 @@ class TestCoarsePreSeed:
         return StubCoarse(observations)
 
     def _observations(self):
-        from cwipc_util_tpu.registration.coarse import _marker_world_corners
+        from cwipc_util_jax.registration.coarse import _marker_world_corners
 
         # marker 5 lives at a known world pose; neither camera sees the
         # floor marker 0, so camera 1 can only register through camera 0's

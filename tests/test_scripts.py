@@ -21,7 +21,7 @@ def run_cwipc(*args, timeout=240, env_extra=None):
     if env_extra:
         env.update(env_extra)
     return subprocess.run(
-        [sys.executable, "-m", "cwipc_util_tpu", *args],
+        [sys.executable, "-m", "cwipc_util_jax", *args],
         capture_output=True,
         text=True,
         timeout=timeout,
@@ -243,8 +243,8 @@ class TestNetworkPipelines:
         source (which would align a tile against itself)."""
         import argparse
 
-        import cwipc_util_tpu as cwipc
-        from cwipc_util_tpu.scripts.cwipc_find_transform import TransformFinder
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax.scripts.cwipc_find_transform import TransformFinder
 
         pts = [(float(i) * 0.01, 0.0, 0.0, 128, 128, 128, 1 if i < 40 else 2)
                for i in range(100)]
@@ -273,7 +273,7 @@ class TestNetworkPipelines:
     def test_register_visualizer_class_is_cached(self):
         """Module __getattr__ returns the SAME lazily-built class object on
         every access (isinstance/subclass checks must hold across accesses)."""
-        from cwipc_util_tpu.scripts import cwipc_register as m
+        from cwipc_util_jax.scripts import cwipc_register as m
 
         assert m.RegistrationVisualizer is m.RegistrationVisualizer
 
@@ -358,7 +358,7 @@ class TestRelayTopology:
         """cwipc toproxy pushes legacy packets into our proxy source."""
         import threading
 
-        from cwipc_util_tpu.net.proxy import cwipc_proxy_source
+        from cwipc_util_jax.net.proxy import cwipc_proxy_source
 
         port = _free_port()
         src = cwipc_proxy_source("127.0.0.1", port)
@@ -399,7 +399,7 @@ class TestRegister:
         env["JAX_PLATFORMS"] = "cpu"
         env.pop("XLA_FLAGS", None)
         return subprocess.run(
-            [sys.executable, "-m", "cwipc_util_tpu", *args],
+            [sys.executable, "-m", "cwipc_util_jax", *args],
             capture_output=True, text=True, timeout=timeout, env=env,
             cwd=str(cwd), input=stdin,
         )
@@ -594,15 +594,15 @@ def test_runtime_quality_switch_over_tcp():
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("XLA_FLAGS", None)
     fwd = subprocess.Popen(
-        [sys.executable, "-m", "cwipc_util_tpu", "forward", "--synthetic",
+        [sys.executable, "-m", "cwipc_util_jax", "forward", "--synthetic",
          "--npoints", "1000", "--count", "3000", "--fps", "30", "--nodrop",
          "--tiled", "--octree_bits", "8", "--octree_bits", "10",
          "--port", str(port)],
         env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
     )
     try:
-        from cwipc_util_tpu.net import source_decoder, source_synchronizer
-        from cwipc_util_tpu.net.source_netclient import cwipc_multisource_netclient
+        from cwipc_util_jax.net import source_decoder, source_synchronizer
+        from cwipc_util_jax.net.source_netclient import cwipc_multisource_netclient
 
         # wait until the forward process serves all 4 ports (a refused
         # connection is EOF to the netclient, by reference semantics)
@@ -661,10 +661,10 @@ class TestRecordingRegistration:
 
         gen_code = f"""
 import sys; sys.path.insert(0, {REPO!r})
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.filters.simulatecams import SimulatecamsFilter
-from cwipc_util_tpu.registration.util import cwipc_transform
-from cwipc_util_tpu.scripts.cwipc_create_analysis_test import perturbation
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.filters.simulatecams import SimulatecamsFilter
+from cwipc_util_jax.registration.util import cwipc_transform
+from cwipc_util_jax.scripts.cwipc_create_analysis_test import perturbation
 
 gen = cwipc.cwipc_synthetic(0, 9000)
 gen.start(); pc = gen.get(); gen.stop()
@@ -683,7 +683,7 @@ for cam in range(3):
         assert r.returncode == 0, r.stderr[-500:]
 
         r = subprocess.run(
-            [sys.executable, "-m", "cwipc_util_tpu", "register",
+            [sys.executable, "-m", "cwipc_util_jax", "register",
              "--nocoarse", "--nofloor", str(tmp_path)],
             env=env, capture_output=True, text=True, timeout=900, cwd=REPO,
         )
@@ -702,7 +702,7 @@ for cam in range(3):
 
         # the aligned recording replays as a fused multi-camera stream
         r = subprocess.run(
-            [sys.executable, "-m", "cwipc_util_tpu", "view", "--playback",
+            [sys.executable, "-m", "cwipc_util_jax", "view", "--playback",
              str(tmp_path), "--nodisplay", "--count", "2"],
             env=env, capture_output=True, text=True, timeout=240, cwd=REPO,
         )
@@ -777,7 +777,7 @@ class TestStreamBench:
         finally:
             sys.path.pop(0)
         res = stream_bench.run_config(
-            "raw", encode=False, npoints=1000, tpu=False, fps=30,
+            "raw", encode=False, npoints=1000, fps=30,
             count=25, warmup=5,
         )
         assert res["measured_clouds"] == 20
@@ -799,7 +799,7 @@ class TestStreamBench:
         finally:
             sys.path.pop(0)
         stages = stream_bench.measure_stages(
-            encode=True, npoints=160000, tpu=False, iters=9
+            encode=True, npoints=160000, iters=9
         )
         for key in ("grab_serialize", "encode", "net", "decode"):
             assert stages[key] > 0, stages

@@ -2,7 +2,7 @@
 
 For every module in the reference's python/cwipc package, every public
 top-level function, class, constant and public class method must resolve
-on the corresponding cwipc_util_tpu module (aliases and inherited methods
+on the corresponding cwipc_util_jax module (aliases and inherited methods
 count — resolution is by import + getattr, not by AST position).  This
 locks the import surface: code written against the reference keeps
 finding every name it uses.
@@ -21,7 +21,7 @@ REFERENCE = "/root/reference/python/cwipc"
 # module -> reason the import itself is EXPECTED to fail
 ALLOWED_IMPORT_ERRORS = {
     # The reference raises ImportError when the hardware plugin is not
-    # installed; these shims reproduce that (cwipc_util_tpu/kinect.py etc.).
+    # installed; these shims reproduce that (cwipc_util_jax/kinect.py etc.).
     "kinect.py": ImportError,
     "orbbec.py": ImportError,
     "realsense2.py": ImportError,
@@ -67,7 +67,7 @@ def _reference_symbols():
 
 
 def _our_module_name(rel):
-    name = "cwipc_util_tpu." + rel[:-3].replace("/", ".").replace(os.sep, ".")
+    name = "cwipc_util_jax." + rel[:-3].replace("/", ".").replace(os.sep, ".")
     return name[: -len(".__init__")] if name.endswith(".__init__") else name
 
 

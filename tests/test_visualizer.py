@@ -10,9 +10,9 @@ import math
 import numpy as np
 import pytest
 
-import cwipc_util_tpu as cwipc
-from cwipc_util_tpu.io.render import OrbitCamera, render_points
-from cwipc_util_tpu.io.visualizer import HELP, Visualizer
+import cwipc_util_jax as cwipc
+from cwipc_util_jax.io.render import OrbitCamera, render_points
+from cwipc_util_jax.io.visualizer import HELP, Visualizer
 
 
 @pytest.fixture()
@@ -70,8 +70,8 @@ class TestKeymapProtocol:
         import threading
         import time as _time
 
-        import cwipc_util_tpu as cwipc
-        from cwipc_util_tpu.io.visualizer import Visualizer
+        import cwipc_util_jax as cwipc
+        from cwipc_util_jax.io.visualizer import Visualizer
 
         viz = Visualizer(nodisplay=True)
         gen = cwipc.cwipc_synthetic(0, 500)
@@ -302,7 +302,7 @@ class TestSkeletonFusion:
     def test_two_bodies_stay_separate(self):
         """fuse_skeletons must fuse per body (skeleton index), never welding
         two people's joints into one chimera."""
-        from cwipc_util_tpu.io.render import fuse_skeletons
+        from cwipc_util_jax.io.render import fuse_skeletons
 
         class J:
             def __init__(self, conf, x):

@@ -1,13 +1,13 @@
 #!/bin/bash
 # E2E CLI combo sweep — flag combinations the unit tests don't exercise.
-# Run on CPU (fast, no TPU claim); exits nonzero on any failure.
+# Runs on CPU (JAX_PLATFORMS=cpu); exits nonzero on any failure.
 # History: this sweep caught the cwipc copy single-file dispatch gap that
 # the flag-parity tests missed — run it each round.
 set -u
 REPO="$(cd "$(dirname "$0")/.." && pwd)"
 export PYTHONPATH="$REPO"
 export JAX_PLATFORMS=cpu
-CLI="python -m cwipc_util_tpu"
+CLI="python -m cwipc_util_jax"
 rm -rf /tmp/e2e_sweep_dir && mkdir -p /tmp/e2e_sweep_dir && cd /tmp/e2e_sweep_dir
 fails=0
 run() {
